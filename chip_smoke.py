@@ -17,27 +17,36 @@ printed as it ends:
 2. kernels: each kernel against its plain PyTorch version on the card,
    element for element (exact: the arithmetic is integer plus one fixed
    float32 compare): the vote scan's two kernels (``vote_cast``, the
-   pre-pass, and ``vote_scan``, the serial pass) each against its own
-   plain version and together against the whole plain scan and the CPU,
-   at windows 1, 32, 33, 35, 100, 128, 129 and 200, with the times at
-   S = 16384; the pair pack;
+   pre-pass from the pair sums, and ``vote_scan``, the serial pass) each
+   against its own plain version and together against the whole plain
+   scan and the CPU, at windows 1, 32, 33, 35, 100, 128, 129 and 200, with
+   the times at S = 16384; then the pair stage's three kernels
+   (``bucket_count``, ``bucket_scatter``, ``pair_cast``) each against its
+   plain version (the buckets as sets), on 30x streams with duplicates,
+   padding and shuffled reads, at the same windows and S in 1, 33, 300,
+   4096 and 16384, with the times at S = 16384, W = 35 and 100;
 3. chromosome scale: ``ops/fused.run_fused_phase`` on a synthetic merged
    stream of 319,951 sites at 20x on ``cuda`` against the same call on
    ``cpu`` (the plain versions): ``ps`` equal, ``ori`` equal on phased
-   sites; the step's wall time and each kernel's time beside its plain
-   version's on the card at that shape, the vote scan at W = 35 and 100
-   (both launches, and each alone);
+   sites; the step's wall time and peak device memory; at W = 35 and 100
+   the pair stage (each launch's time, its peak memory, its pairs and its
+   bound) against its plain versions, ``vote_cast``'s codes from the plain
+   sums equal to ``pair_cast``'s, and the serial pass against the plain
+   scan;
 4. end to end: ``cli phase --pb --device cuda`` on a simulated 2 Mbp, 30x
-   fixture, whose VCF must equal the ``--engine oracle`` run's; every
-   kernel's launch count from that run must be above zero; then the same
-   at ``-a 100``;
+   fixture (the flat path), whose VCF must equal the ``--engine oracle``
+   run's; every kernel of the flat path launched, ``vote_cast`` not; the
+   same at ``-a 100``; then a 300 kbp fixture on the object path (native
+   ingest declined), whose VCF must equal the oracle's and which must
+   launch ``vote_cast`` and ``vote_scan`` and no pair kernel;
 5. chromosome-scale tag reductions: ``ops/tag_kernels`` on a synthetic walk
    of 128,000 reads of 15 kb over 319,951 germline variants (plus 20,000
    tumour-only variants in the somatic modes), about 9.6M observations:
    each reduction on ``cuda`` equals the same call on ``cpu`` key for key,
    and the numpy host path on every key that path computes
    (all but the ``pk`` bytes and the allele counts); its time
-   on the card with and without the transfers and on the host; then the
+   on the card with and without the transfers and on the host, and its
+   bound (its input and output tensors' bytes); then the
    germline and extract reductions at about 10^4..10^7 observations, the
    crossover the engine gate's default comes from;
 6. tag pipelines end to end: ``cli haplotag`` on phase 4's fixture, and on
@@ -47,11 +56,12 @@ printed as it ends:
    host engine: tags, ``_sc.vcf`` and ``_purity.out`` equal, a purity above
    0, and every device reduction called by the device runs.
 
-Then one JSON line with one entry per kernel (its launches on phase 4's
-main path, its time and its plain version's at phase 3's shapes, and its
-bound: the bytes it must move over the card's memory rate), one JSON line
-with one entry per tag reduction, and the last line ``{"ok": true,
-"device": {...}}``. Any failed phase raises, and the script exits
+Then one JSON line with one entry per kernel (its launches on the run of
+phase 4 that drove its path, its time and its plain version's at phase 3's
+shapes, and its bound: the bytes it must move over the card's memory rate,
+or its int32 operations over the int32 rate where those take longer), one
+JSON line with one entry per tag reduction, and the last line ``{"ok":
+true, "device": {...}}``. Any failed phase raises, and the script exits
 non-zero without that line.
 """
 
@@ -67,6 +77,10 @@ import time
 ROOT = os.path.dirname(os.path.abspath(__file__))
 W = 35
 SEED = 20260916
+# the kernels each path of cli phase launches: the flat path (native
+# ingest, ops/fused.run_fused_phase) and the object path (ops/engine.py)
+FLAT_PATH = ("bucket_count", "bucket_scatter", "pair_cast", "vote_scan")
+OBJECT_PATH = ("vote_cast", "vote_scan")
 
 
 class SmokeFailure(RuntimeError):
@@ -83,13 +97,16 @@ def say(msg: str) -> None:
 
 
 def synthetic_stream(rng, S: int, coverage: int, sites_per_read: int,
-                     dup_frac: float = 0.0, pad: int = 0):
+                     dup_frac: float = 0.0, pad: int = 0,
+                     shuffle_reads: bool = False):
     """A (read, rank)-sorted merged observation stream over S sites: reads
     cover contiguous rank runs of about ``sites_per_read`` sites (5% of
     calls dropped) that never cross one of about S / 5000 coverage breaks
     (so phasing yields many blocks), alleles follow a hidden haplotype with
     5% errors, ``dup_frac`` of the rows repeat their (read, rank) with a
-    random allele, and ``pad`` trailing rows carry m_read == -1."""
+    random allele, ``shuffle_reads`` puts the reads in random order (each
+    read's rows stay together), and ``pad`` trailing rows carry m_read ==
+    -1."""
     import numpy as np
 
     n_reads = S * coverage // sites_per_read
@@ -116,6 +133,9 @@ def synthetic_stream(rng, S: int, coverage: int, sites_per_read: int,
         dup = np.ones(len(rank), bool)
         dup[first] = False
         allele[dup] = rng.integers(0, 2, int(dup.sum()))
+    if shuffle_reads:
+        order = np.argsort(rng.permutation(n_reads)[read], kind="stable")
+        read, rank, allele = read[order], rank[order], allele[order]
     qok = rng.random(len(rank)) < 0.9
     if pad:
         read = np.concatenate([read, np.full(pad, -1)])
@@ -161,13 +181,25 @@ def cuda_ms(fn, reps: int) -> float:
 
 # NVIDIA H100 SXM device memory rate (HBM3, 3.35 TB/s)
 HBM_BYTES_PER_S = 3.35e12
+# its int32 rate outside the tensor cores: 64 int32 lanes an SM (Hopper
+# architecture white paper) x 132 SMs x 1.98 GHz, about 16.7 Tops/s
+INT32_OPS_PER_S = 64 * 132 * 1.98e9
 
 
 def bound_ms(nbytes: int) -> float:
     """The least time the card could take to move ``nbytes`` once each.
-    The three kernels do a few integer operations a byte, far below the
-    card's operation rate, so bytes bound them."""
+    The scan's kernels and the bucket passes do a few integer operations a
+    byte, far below the card's operation rate, so bytes bound them."""
     return 1000 * nbytes / HBM_BYTES_PER_S
+
+
+def roofline(nbytes: int, ops: int):
+    """(ms, "bytes" or "operations"): the larger of ``nbytes`` moved once
+    each over the memory rate and ``ops`` int32 operations over the int32
+    rate."""
+    by_ops = 1000 * ops / INT32_OPS_PER_S
+    return (by_ops, "operations") if by_ops > bound_ms(nbytes) \
+        else (bound_ms(nbytes), "bytes")
 
 
 def max_abs_err(a, b) -> int:
@@ -225,6 +257,7 @@ def scan_inputs(rng, S: int, dev, window: int = W):
 
 
 def phase2_kernels(rng, dev):
+    import numpy as np
     import torch
 
     from longphase_s_tpu_torch.ops import cuda_scan, fused
@@ -271,26 +304,119 @@ def phase2_kernels(rng, dev):
         f"{list(windows)} x S in [300, 4096, 16384] x edgeThreshold in "
         "[0.7, 0.33]")
 
-    for S in (300, 4096, 16384):
-        read, rank, allele, qok, _n = synthetic_stream(
-            rng, S, coverage=30, sites_per_read=60, dup_frac=0.02, pad=1000)
-        stream = fused.stream_to_device(read, rank, allele, qok, dev)
-        got = fused.pair_sums(*stream, S, W)
-        ref = fused.pair_sums_plain(*stream, S, W)
-        cpu = fused.pair_sums(*(x.cpu() for x in stream), S, W)
-        torch.cuda.synchronize()
-        err = max(max_abs_err(got, ref), max_abs_err([g.cpu() for g in got], cpu))
-        check(err == 0, f"pair_pack kernel differs from its plain version "
-              f"at S={S}: max |diff| {err}")
-        check(int(got[0].sum()) > 0 and int(got[1].sum()) > 0,
-              "pair_pack produced empty sums")
-        if S == 16384:
-            ms = cuda_ms(lambda: fused.pair_sums(*stream, S, W), 20)
-            plain = cuda_ms(lambda: fused.pair_sums_plain(*stream, S, W), 3)
-            say(f"phase 2 pair_pack S={S} ({len(read)} observations): "
-                f"kernel {ms} ms, plain version on the card {plain} ms")
-    say("phase 2 pair_pack: kernel equals its plain version on 30x streams "
-        "with duplicate (read, rank) rows and m_read == -1 padding")
+    per_obs = {}
+    for window in windows:
+        for k, S in enumerate((1, 33, 300, 4096, 16384)):
+            read, rank, allele, qok, _n = synthetic_stream(
+                rng, S, coverage=30, sites_per_read=60, dup_frac=0.02,
+                pad=1000, shuffle_reads=k % 2 == 1)
+            stream = fused.stream_to_device(read, rank, allele, qok, dev)
+            gap = torch.from_numpy(rng.integers(1, 400000, S)
+                                   .astype(np.int32)).to(dev)
+            vt = torch.from_numpy(rng.integers(0, 5, S).astype(np.int8)) \
+                .to(dev)
+            kw = dict(distance=300000, edge_threshold_x10=7.0)
+            errs, T = pair_stage_errors(stream, gap, vt, S, window, **kw)
+            got = fused.pair_codes(stream, gap, vt, S, window, **kw)
+            if S <= 300:  # the CPU's plain version, as the CPU path runs it
+                cpu = fused.pair_codes(tuple(x.cpu() for x in stream),
+                                       gap.cpu(), vt.cpu(), S, window, **kw)
+                errs["pair_codes on the cpu"] = max_abs_err(
+                    [g.cpu() for g in got], cpu)
+            where = f"S={S}, W={window}, T={T}, {len(read)} rows"
+            for name, err in errs.items():
+                check(err == 0, f"{name} differs from its plain version at "
+                      f"{where}: max |diff| {err}")
+            if S >= 4096:
+                check(int((got[0] != 0).sum()) > S // 2, f"pair_cast cast too "
+                      f"few votes at {where}")
+            if S == 16384 and window in (W, 100):
+                per_obs[window] = pair_stage_times(stream, gap, vt, S, window,
+                                                   10, **kw)
+                say(f"phase 2 pair stage S={S} W={window} T={T} "
+                    f"({len(read)} rows): {per_obs[window]}")
+    say(f"phase 2 bucket_count, bucket_scatter and pair_cast: each kernel "
+        f"equals its plain version at W in {list(windows)} x S in [1, 33, "
+        "300, 4096, 16384], on 30x streams with duplicate (read, rank) "
+        "rows, m_read == -1 padding and (every other size) reads in "
+        "random order; pair_codes equals the CPU's plain version up to "
+        "S = 300")
+    return per_obs
+
+
+def pair_stage_errors(stream, gap, vt, S: int, window: int, **kw):
+    """Each kernel of the pair stage against its plain version on the
+    same inputs: the counts exactly; the buckets as sets (the kernel's
+    order inside a bucket is arbitrary; its keys must run in tile order and
+    each bucket hold the plain version's sources); the codes and site words
+    exactly. Returns ({kernel: max |diff|}, T)."""
+    import torch
+
+    from longphase_s_tpu_torch.ops import fused
+
+    read, rank = stream[0], stream[1]
+    T = fused.pair_tile_rows(S, window, read.device)
+    count = fused.bucket_counts(read, rank, S, T)
+    order, ends = fused.bucket_order(read, rank, S, T, count)
+    codes = fused.pair_cast_tiles(stream, order, ends, gap, vt, S, window, T,
+                                  **kw)
+    ref_count = fused.bucket_counts_plain(read, rank, S, T)
+    ref_order, ref_ends = fused.bucket_order_plain(read, rank, S, T,
+                                                   ref_count)
+    ref_codes = fused.pair_codes_plain(stream, gap, vt, S, window, **kw)
+    torch.cuda.synchronize()
+    m = len(ref_order)
+    scatter_err = max_abs_err([ends], [ref_ends])
+    if scatter_err == 0 and m:
+        got = order[:m].long()
+        key = rank[got].long() // T
+        ref_key = rank[ref_order.long()].long() // T
+        n = len(read)
+        scatter_err = max(max_abs_err([key], [ref_key]), max_abs_err(
+            [torch.sort(key * n + got).values],
+            [ref_key * n + ref_order.long()]))
+    return {"bucket_count": max_abs_err([count], [ref_count]),
+            "bucket_scatter": scatter_err,
+            "pair_cast": max_abs_err(codes, ref_codes)}, T
+
+
+def pair_stage_times(stream, gap, vt, S: int, window: int, reps: int, **kw):
+    """CUDA-event ms of each launch of the pair stage and of the whole
+    ``pair_codes``, and the tile kernel's ns an observation."""
+    from longphase_s_tpu_torch.ops import fused
+
+    read, rank = stream[0], stream[1]
+    T = fused.pair_tile_rows(S, window, read.device)
+    count = fused.bucket_counts(read, rank, S, T)
+    order, ends = fused.bucket_order(read, rank, S, T, count)
+    out = {
+        "bucket_count": cuda_ms(
+            lambda: fused.bucket_counts(read, rank, S, T), reps),
+        # the scan of the counts (torch.cumsum) and the scatter
+        "bucket_scatter": cuda_ms(
+            lambda: fused.bucket_order(read, rank, S, T, count), reps),
+        "pair_cast": cuda_ms(lambda: fused.pair_cast_tiles(
+            stream, order, ends, gap, vt, S, window, T, **kw), reps),
+        "pair_codes": cuda_ms(lambda: fused.pair_codes(
+            stream, gap, vt, S, window, **kw), reps)}
+    out["pair_cast_ns_per_obs"] = 1e6 * out["pair_cast"] / len(read)
+    return out
+
+
+def pair_work(stream, S: int, window: int):
+    """The pairs the function adds on this stream (stream-shift pairs of a
+    source with 1 <= d <= the cut window), counted on the card."""
+    from longphase_s_tpu_torch.ops import cuda_scan
+
+    read, rank = stream[0], stream[1]
+    n, w = len(read), cuda_scan.cut_window(S, window)
+    own = (read >= 0) & (rank >= 0) & (rank < S)
+    pairs = 0
+    for m in range(1, min(window, n - 1) + 1):
+        d = rank[m:] - rank[:n - m]
+        pairs += int((own[:n - m] & (read[:n - m] == read[m:]) & (d >= 1)
+                      & (d <= w)).sum())
+    return pairs
 
 
 def phase3_chromosome(rng, dev) -> dict:
@@ -314,6 +440,11 @@ def phase3_chromosome(rng, dev) -> dict:
         t0 = time.perf_counter()
         ps, ori = fused.run_fused_phase(*args, device=dev)
         walls.append(time.perf_counter() - t0)
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats(dev)
+    base = torch.cuda.memory_allocated(dev)
+    fused.run_fused_phase(*args, device=dev)
+    peak_mb = (torch.cuda.max_memory_allocated(dev) - base) / 1e6
     t0 = time.perf_counter()
     ps_cpu, ori_cpu = fused.run_fused_phase(*args, device="cpu")
     cpu_wall = time.perf_counter() - t0
@@ -324,51 +455,77 @@ def phase3_chromosome(rng, dev) -> dict:
           "chromosome-scale ori differs cuda/cpu on phased sites")
     check(phased.sum() > S // 2, f"only {phased.sum()} of {S} sites phased")
     check(len(np.unique(ps[phased])) > S // 10000, "too few phase blocks")
-    say(f"phase 3 chromosome scale: S={S}, {len(read)} observations, "
+    n = len(read)
+    say(f"phase 3 chromosome scale: S={S}, {n} observations, "
         f"{int(phased.sum())} sites phased, {len(np.unique(ps[phased]))} "
         f"blocks; run_fused_phase wall on cuda {walls[1:]} s "
-        f"(warm-up {walls[0]} s), on cpu {cpu_wall} s; cuda == cpu")
+        f"(warm-up {walls[0]} s), on cpu {cpu_wall} s; cuda == cpu; the "
+        f"step's peak device memory {peak_mb} MB above what it found")
 
     stream = fused.stream_to_device(read, rank, allele, qok, dev)
-    pack_ms = cuda_ms(lambda: fused.pair_sums(*stream, S, W), 10)
-    pack_plain_ms = cuda_ms(lambda: fused.pair_sums_plain(*stream, S, W), 1)
-    sums = fused.pair_sums(*stream, S, W)
-    pack_err = max_abs_err(sums, fused.pair_sums_plain(*stream, S, W))
     gap = torch.from_numpy(site_gaps(positions)).to(dev)
     vt = torch.from_numpy(vtype).to(dev)
-    check(pack_err == 0, f"pair_pack differs from plain at chromosome "
-          f"scale: {pack_err}")
-    say(f"phase 3 pair_pack at S={S}: {pack_ms} ms (plain version on the "
-        f"card {pack_plain_ms} ms)")
-    scans = {}
+    kw = dict(distance=params.distance,
+              edge_threshold_x10=params.edge_threshold * 10.0)
+    keys = torch.from_numpy(rank.astype(np.int64)
+                            // fused.pair_tile_rows(S, W, dev)).to(dev)
+    sort_ms = cuda_ms(lambda: torch.sort(keys), 3)
+    out = {}
     for window in (W, 100):
-        if window != W:
-            sums = fused.pair_sums(*stream, S, window)
-        kw = dict(S=S, window=window, distance=params.distance,
-                  edge_threshold_x10=params.edge_threshold * 10.0)
-        args = (*sums, gap, vt)
-        both_ms = cuda_ms(lambda: cuda_scan.vote_scan_pc(*args, **kw), 10)
-        cast_ms = cuda_ms(lambda: cuda_scan.vote_codes(*args, **kw), 10)
-        codes, site = cuda_scan.vote_codes(*args, **kw)
+        w = cuda_scan.cut_window(S, window)
+        errs, T = pair_stage_errors(stream, gap, vt, S, window, **kw)
+        for name, err in errs.items():
+            check(err == 0, f"{name} differs from its plain version at "
+                  f"chromosome scale, W={window}: {err}")
+        times = pair_stage_times(stream, gap, vt, S, window, 10, **kw)
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats(dev)
+        base = torch.cuda.memory_allocated(dev)
+        codes, site = fused.pair_codes(stream, gap, vt, S, window, **kw)
+        stage_mb = (torch.cuda.max_memory_allocated(dev) - base) / 1e6
+        plain_ms = cuda_ms(lambda: fused.pair_codes_plain(
+            stream, gap, vt, S, window, **kw), 1)
+        pairs = pair_work(stream, S, window)
+        # the stream, gap and vtype in; S x w codes and the site words out;
+        # one add a pair and about 16 operations a cast (t, d)
+        cast_bound = roofline(n * 10 + S * 5 + S * w + S * 4,
+                              pairs + 16 * S * w)
+        say(f"phase 3 pair stage at S={S}, W={window}, T={T}: {times}; "
+            f"{pairs} pairs; peak device memory {stage_mb} MB; plain "
+            f"version on the card {plain_ms} ms; bound {cast_bound}; equal")
+        # the scan, fed by the object path's cast from the plain sums
+        sums = fused.pair_sums_plain(*stream, S, window)
+        cargs = (*sums, gap, vt)
+        skw = dict(S=S, window=window, **kw)
+        cast_ms = cuda_ms(lambda: cuda_scan.vote_codes(*cargs, **skw), 10)
+        vcodes, vsite = cuda_scan.vote_codes(*cargs, **skw)
+        check(torch.equal(vcodes, codes) and torch.equal(vsite, site),
+              f"vote_cast and pair_cast cast differently at W={window}")
         serial_ms = cuda_ms(
             lambda: cuda_scan.vote_serial(codes, site, S, window), 10)
         got = cuda_scan.vote_serial(codes, site, S, window)
         t0 = time.perf_counter()
-        whole = cuda_scan.vote_scan_pc_plain(*args, **kw)
+        whole = cuda_scan.vote_scan_pc_plain(*cargs, **skw)
         torch.cuda.synchronize()
         whole_ms = 1000 * (time.perf_counter() - t0)
         err = max_abs_err(got, whole)
         check(err == 0, f"vote scan differs from the plain scan at "
               f"chromosome scale, W={window}: {err}")
-        say(f"phase 3 vote scan at S={S}, W={window}: both launches "
-            f"{both_ms} ms (vote_cast {cast_ms} ms, vote_scan {serial_ms} "
-            f"ms); plain scan on the card {whole_ms} ms; equal")
+        say(f"phase 3 vote scan at S={S}, W={window}: vote_serial "
+            f"{serial_ms} ms over pair_cast's codes; vote_cast (object "
+            f"path) {cast_ms} ms, its codes equal pair_cast's; plain scan "
+            f"on the card {whole_ms} ms; equal")
         if window != W:
             continue
+        ref = (fused.bucket_counts_plain(stream[0], stream[1], S, T),)
+        count_plain_ms = cuda_ms(lambda: fused.bucket_counts_plain(
+            stream[0], stream[1], S, T), 3)
+        order_plain_ms = cuda_ms(lambda: fused.bucket_order_plain(
+            stream[0], stream[1], S, T, ref[0]), 3)
         cast_plain_ms = cuda_ms(
-            lambda: cuda_scan.vote_codes_plain(*args, **kw), 1)
-        cast_err = max_abs_err((codes, site),
-                               cuda_scan.vote_codes_plain(*args, **kw))
+            lambda: cuda_scan.vote_codes_plain(*cargs, **skw), 1)
+        cast_err = max_abs_err((vcodes, vsite),
+                               cuda_scan.vote_codes_plain(*cargs, **skw))
         t0 = time.perf_counter()
         serial_ref = cuda_scan.vote_serial_plain(codes, site, S, window)
         torch.cuda.synchronize()
@@ -377,28 +534,60 @@ def phase3_chromosome(rng, dev) -> dict:
         check(cast_err == 0 and serial_err == 0, f"vote_cast / vote_scan "
               f"differ from their plain versions at chromosome scale: "
               f"{cast_err} / {serial_err}")
-        say(f"phase 3 plain versions on the card at W={W}: vote_cast "
-            f"{cast_plain_ms} ms, vote_scan {serial_plain_ms} ms; equal")
-        # one code byte a (site, offset) the function needs: the cut window,
-        # not the row padding the kernels read and write
-        w = cuda_scan.cut_window(S, W)
-        scans["vote_cast"] = (cast_ms, cast_plain_ms, cast_err, bound_ms(
-            # sums, gap and vtype in; codes and site words out
-            2 * S * W * 4 + S * 4 + S + S * w + S * 4))
-        scans["vote_scan"] = (serial_ms, serial_plain_ms, serial_err,
-                              bound_ms(
-            # codes and site words in; assigned, hp and bstart out
-            S * w + S * 4 + S + 2 * S * 4))
-    n = len(read)
-    return {"pair_pack": (pack_ms, pack_plain_ms, pack_err, bound_ms(
-                # read, rank, allele, qok in; the two [S, W] sums out
-                n * (4 + 4 + 1 + 1) + 2 * S * W * 4)),
-            **scans}
+        n_src = int(ref[0].sum())
+        tiles = -(-S // T)
+        share = times["pair_cast"] / (times["bucket_count"]
+                                      + times["bucket_scatter"]
+                                      + times["pair_cast"])
+        # the tile kernel at the tallest tile, which fits fewer blocks on
+        # an SM: what latency costs it
+        count128 = fused.bucket_counts(stream[0], stream[1], S, 128)
+        order128, ends128 = fused.bucket_order(stream[0], stream[1], S, 128,
+                                               count128)
+        tall_ms = cuda_ms(lambda: fused.pair_cast_tiles(
+            stream, order128, ends128, gap, vt, S, window, 128, **kw), 10)
+        say(f"phase 3 plain versions on the card at W={W}: bucket_count "
+            f"{count_plain_ms} ms, bucket_scatter {order_plain_ms} ms, "
+            f"vote_cast {cast_plain_ms} ms, vote_scan {serial_plain_ms} ms; "
+            f"torch.sort of the {n} tile keys {sort_ms} ms; equal")
+        out = {
+            "bucket_count": dict(
+                ms=times["bucket_count"], plain_ms=count_plain_ms,
+                err=errs["bucket_count"], bound=roofline(
+                    n * 8 + tiles * 4, n),  # read, rank in; counts out
+                limited_by="not measured"),
+            "bucket_scatter": dict(
+                ms=times["bucket_scatter"], plain_ms=order_plain_ms,
+                err=errs["bucket_scatter"], bound=roofline(
+                    # read, rank and the counts in; the index out
+                    n * 8 + tiles * 4 + n_src * 4, n),
+                limited_by="not measured"),
+            "pair_cast": dict(
+                ms=times["pair_cast"], plain_ms=plain_ms,
+                err=errs["pair_cast"], bound=cast_bound,
+                limited_by=(
+                    f"measured: the tile kernel is {share:.3f} of the pair "
+                    f"stage's three launches; {times['pair_cast']:.4f} ms "
+                    f"at T = {T} against {tall_ms:.4f} ms at T = 128, whose "
+                    "shared memory fits fewer blocks an SM: the latency of "
+                    "the successor walk (tools/pair_cast_probe.py splits "
+                    "it)")),
+            "vote_cast": dict(
+                ms=cast_ms, plain_ms=cast_plain_ms, err=cast_err,
+                # sums, gap and vtype in; codes and site words out
+                bound=roofline(2 * S * W * 4 + S * 4 + S + S * w + S * 4, 0),
+                limited_by="not measured"),
+            "vote_scan": dict(
+                ms=serial_ms, plain_ms=serial_plain_ms, err=serial_err,
+                # codes and site words in; assigned, hp and bstart out
+                bound=roofline(S * w + S * 4 + S + 2 * S * 4, 0),
+                limited_by="latency of its serial chain")}
+    return out
 
 
 def phase4_end_to_end(workdir: str) -> dict:
     from longphase_s_tpu_torch.testing.simulate import make_fixture
-    from longphase_s_tpu_torch import cli
+    from longphase_s_tpu_torch import cli, native
     from longphase_s_tpu_torch.ops import _build
 
     t0 = time.perf_counter()
@@ -432,11 +621,13 @@ def phase4_end_to_end(workdir: str) -> dict:
                    if not line.startswith("#") and "|" in line.split("\t")[-1])
     check(gpu_vcf == oracle_vcf, "cuda VCF differs from the oracle VCF")
     check(n_phased > 1000, f"only {n_phased} records phased")
-    for name, n in launches.items():
-        check(n > 0, f"kernel {name} was not launched by the main path")
+    for name in FLAT_PATH:
+        check(launches[name] > 0, f"kernel {name} was not launched by the "
+              "flat path")
+    check(launches["vote_cast"] == 0, "the flat path launched vote_cast")
     say(f"phase 4 end to end: cli phase --device cuda {gpu_wall} s, "
         f"--engine oracle {oracle_wall} s, {n_phased} phased records, VCFs "
-        f"identical; launches {launches}")
+        f"identical; flat path launches {launches}")
 
     wide = base + ["-a", "100"]
     t0 = time.perf_counter()
@@ -449,7 +640,44 @@ def phase4_end_to_end(workdir: str) -> dict:
           "cuda VCF differs from the oracle VCF at -a 100")
     say(f"phase 4 -a 100: cli phase --device cuda {wide_wall} s, VCF "
         "identical to --engine oracle")
-    return launches, fx, out_gpu + ".vcf"
+
+    # the object path: the native ingest declines, so the pair counts come
+    # from the host and the scan casts them with vote_cast
+    fx_obj = make_fixture(os.path.join(workdir, "obj"), seed=4,
+                          length=300_000, coverage=20, read_len=10000,
+                          snp_rate=0.002, error_rate=0.04, qual=20)
+    obj = ["phase", "--pb", "-s", fx_obj["vcf"], "-b", fx_obj["bam"], "-r",
+           fx_obj["fasta"]]
+    out_obj = os.path.join(workdir, "obj_gpu")
+    available = native.available
+    native.available = lambda: False
+    try:
+        _build.reset_launches()
+        t0 = time.perf_counter()
+        rc = cli.main(obj + ["-o", out_obj, "--device", "cuda"])
+        obj_wall = time.perf_counter() - t0
+        obj_launches = dict(_build.LAUNCHES)
+    finally:
+        native.available = available
+    check(rc == 0, f"cli phase on the object path returned {rc}")
+    rc = cli.main(obj + ["-o", out_obj + "_oracle", "--engine", "oracle"])
+    check(rc == 0, "cli phase --engine oracle on the object path's fixture "
+          f"returned {rc}")
+    obj_vcf = body(out_obj)
+    check(obj_vcf == body(out_obj + "_oracle"),
+          "object-path cuda VCF differs from the oracle VCF")
+    check(sum("|" in line for line in obj_vcf) > 50,
+          "the object path phased too few records")
+    for name in OBJECT_PATH:
+        check(obj_launches[name] > 0, f"kernel {name} was not launched by "
+              "the object path")
+    check(not any(obj_launches[k] for k in FLAT_PATH if k != "vote_scan"),
+          "the object path launched a pair kernel")
+    say(f"phase 4 object path (native ingest declined): cli phase --device "
+        f"cuda {obj_wall} s, VCF identical to --engine oracle; launches "
+        f"{obj_launches}")
+    return {name: launches[name] for name in FLAT_PATH} | {
+        "vote_cast": obj_launches["vote_cast"]}, fx, out_gpu + ".vcf"
 
 
 def synthetic_tag_inputs(rng, n_germline: int = 319_951,
@@ -624,21 +852,29 @@ def phase5_tag_reductions(rng, dev) -> dict:
         return lambda: tk.somatic_counts(walk, st, mode, device=device, **kw)
 
     def on_device(mode):
-        """The reduction on tensors already on the card."""
+        """The reduction on tensors already on the card, and the bytes of
+        its input tensors."""
         if mode == "germline":
             w = tk.walk_to_device(gwalk, None, dev)
             tabs = tk.tables_to_device(gt, tk.GERMLINE_ROWS, dev)
             A = len(gwalk["category"])
-            return lambda: (tk.germline_reduce(w, tabs, A, True),
-                            torch.cuda.synchronize())
-        w = tk.walk_to_device(walk, None if mode == "haplotag" else gate, dev)
-        tabs = tk.tables_to_device(dict(st, is_som=is_som, derive=derive),
-                                   tk.SOMATIC_ROWS, dev)
-        A, S = len(walk["category"]), len(st["pos"])
-        return lambda: (tk.somatic_reduce(w, tabs, A, S, mode,
-                                          mode != "haplotag",
-                                          mode == "haplotag", True),
-                        torch.cuda.synchronize())
+            fn = lambda: (tk.germline_reduce(w, tabs, A, True),
+                          torch.cuda.synchronize())
+        else:
+            w = tk.walk_to_device(walk, None if mode == "haplotag" else gate,
+                                  dev)
+            tabs = tk.tables_to_device(dict(st, is_som=is_som,
+                                            derive=derive),
+                                       tk.SOMATIC_ROWS, dev)
+            A, S = len(walk["category"]), len(st["pos"])
+            fn = lambda: (tk.somatic_reduce(w, tabs, A, S, mode,
+                                            mode != "haplotag",
+                                            mode == "haplotag", True),
+                          torch.cuda.synchronize())
+        return fn, tensor_bytes(*w.values(), *tabs.values())
+
+    def tensor_bytes(*xs):
+        return sum(x.numel() * x.element_size() for x in xs)
 
     def host(mode, wk=None, tabs=None):
         if mode == "germline":
@@ -675,11 +911,18 @@ def phase5_tag_reductions(rng, dev) -> dict:
         check(h1_cnt.sum() > 0 and n_ps.max() >= 1,
               f"{mode} reduction counted nothing")
         dev_s = best_s(args(mode, dev))
-        kernel_s = best_s(on_device(mode))
+        reduce, in_bytes = on_device(mode)
+        kernel_s = best_s(reduce)
+        out = reduce()[0]
+        # each input tensor read once, each output written once
+        nbytes = in_bytes + tensor_bytes(
+            *(out if isinstance(out, tuple) else (out,)))
         host_s = best_s(host(mode))
-        times[mode] = (1000 * dev_s, 1000 * kernel_s, 1000 * host_s)
+        times[mode] = (1000 * dev_s, 1000 * kernel_s, 1000 * host_s,
+                       bound_ms(nbytes), nbytes)
         say(f"phase 5 {mode}: cuda == cpu == host; on the card {1000 * dev_s}"
-            f" ms with transfers, {1000 * kernel_s} ms without; host numpy "
+            f" ms with transfers, {1000 * kernel_s} ms without (bound "
+            f"{bound_ms(nbytes)} ms: {nbytes} bytes); host numpy "
             f"{1000 * host_s} ms; torch on the cpu {1000 * cpu_s} ms")
 
     # crossover: prefixes of the walks (observations are aln-sorted)
@@ -843,31 +1086,39 @@ def main() -> int:
                     if m.split(".")[0] in ("jax", "longphase_s_tpu"))
     check(not leaked, f"the port imported {leaked[:5]}")
 
-    sources = {"vote_cast": ("longphase_s_tpu_torch/csrc/vote_scan.cu",
-                             "longphase_s_tpu/ops/pallas_scan.py:77"),
-               "vote_scan": ("longphase_s_tpu_torch/csrc/vote_scan.cu",
-                             "longphase_s_tpu/ops/pallas_scan.py:162"),
-               "pair_pack": ("longphase_s_tpu_torch/csrc/pair_pack.cu",
-                             "longphase_s_tpu/ops/fused.py:26")}
-    # what holds each kernel's measured time back, where known; bound_by
-    # names what sets its roofline bound, which is bytes for all three
-    limited_by = {"vote_cast": "not measured", "pair_pack": "not measured",
-                  "vote_scan": "latency of its serial chain"}
+    pair = "longphase_s_tpu_torch/csrc/pair_cast.cu"
+    scan = "longphase_s_tpu_torch/csrc/vote_scan.cu"
+    # (source, the TPU-side function it replaces, the cli phase path whose
+    # run gave its launches)
+    sources = {"bucket_count": (pair, "longphase_s_tpu/ops/fused.py:26",
+                                "flat"),
+               "bucket_scatter": (pair, "longphase_s_tpu/ops/fused.py:26",
+                                  "flat"),
+               "pair_cast": (pair, "longphase_s_tpu/ops/fused.py:26 and "
+                             "longphase_s_tpu/ops/pallas_scan.py:77", "flat"),
+               "vote_scan": (scan, "longphase_s_tpu/ops/pallas_scan.py:162",
+                             "flat"),
+               "vote_cast": (scan, "longphase_s_tpu/ops/pallas_scan.py:77",
+                             "object")}
     kernels = []
-    for name, (source, replaces) in sources.items():
-        ms, plain_ms, err, bound = times[name]
+    for name, (source, replaces, path) in sources.items():
+        t = times[name]
+        bound, bound_by = t["bound"]
         kernels.append({"name": name, "route": "cuda", "source": source,
-                        "replaces": replaces, "launches": launches[name],
-                        "max_abs_err": err, "ms": ms, "plain_ms": plain_ms,
-                        "bound_ms": bound, "bound_by": "bytes",
-                        "limited_by": limited_by[name], "library_ms": None})
+                        "replaces": replaces, "path": path,
+                        "launches": launches[name], "max_abs_err": t["err"],
+                        "ms": t["ms"], "plain_ms": t["plain_ms"],
+                        "bound_ms": bound, "bound_by": bound_by,
+                        "limited_by": t["limited_by"], "library_ms": None})
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"tag_reductions": [
         {"name": name, "ms": ms, "ms_without_transfers": kernel_ms,
-         "host_ms": host_ms,
+         "host_ms": host_ms, "bound_ms": bound, "bound_by": "bytes",
+         "bytes": nbytes,
          "calls": tag_calls["germline" if name == "germline"
                             else f"somatic_{name}"]}
-        for name, (ms, kernel_ms, host_ms) in tag_times.items()]}))
+        for name, (ms, kernel_ms, host_ms, bound, nbytes)
+        in tag_times.items()]}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),
         "count": torch.cuda.device_count()}}), flush=True)

@@ -41,59 +41,26 @@
 //      bytes of ring plus two staged rows, which bounds W at about 10,500
 //      on sm_90 (227 KB a block).
 // Windows wider than the chromosome are cut to w = min(W, S-1) first: a
-// vote to t+d >= S never counts. Many chromosomes in one launch, and the
-// cast fused into the pair pack, are left for later work.
+// vote to t+d >= S never counts. On the phase flat path the codes come from
+// pair_cast (csrc/pair_cast.cu), which casts them straight from the
+// observation stream; vote_cast serves callers that hold the sums (the
+// object path). Many chromosomes in one launch are left for later work.
 //
-// Numerics: exact x10 integers, except the edge-similarity reject, which is
-// the float32 compare 10*mn > thr10*mx of vote_scan.py:122-123. Both products
-// are written with __fmul_rn so that nvcc cannot contract them into an FMA.
+// Numerics: see csrc/vote_code.cuh (cast_code, shared with pair_cast).
 
 #include <cuda_pipeline.h>
 #include <cuda_runtime.h>
 #include <stdint.h>
 
+#include "vote_code.cuh"
+
 namespace {
 
-constexpr unsigned kFull = 0xffffffffu;
+using namespace lps;
+
 constexpr int kChunk = 32;        // sites per staged chunk: one per lane
 constexpr int kMaxRegSlots = 4;   // register ring up to W = 128
 constexpr int kCastRows = 8;      // site rows per cast block (one per warp)
-
-// code bits
-constexpr unsigned kWeightMask = 3u;  // 0 none, 1 -> 1, 2 -> 10, 3 -> 200
-constexpr unsigned kToH1 = 4u;
-constexpr unsigned kSmall = 8u;
-constexpr unsigned kElig = 16u;
-// the weights of classes 0..3 as bytes of one word, for __byte_perm
-constexpr unsigned kWeightBytes = 0xC80A0100u;
-constexpr int kSkipBit = 16;  // site word: dmax | (gap > distance) << 16
-
-// One vote's code (pallas_scan.py:84-125); 0 when the edge does not connect.
-__device__ __forceinline__ uint8_t cast_code(int sp, int sc, int vt, int tvt,
-                                             bool valid, float thr10,
-                                             int t_snp, int t_mod,
-                                             int t_indel, int t_danger) {
-  const int total = sp + sc;
-  const int mn = min(sp, sc);
-  const int mx = max(sp, sc);
-  const bool modsnp = (vt == t_snp && tvt == t_mod) ||
-                      (vt == t_mod && tvt == t_snp);
-  const float thr = modsnp ? (total < 10 ? -10.0f : 3.0f) : thr10;
-  const bool reject = mx > 0 && __fmul_rn(10.0f, static_cast<float>(mn)) >
-                                    __fmul_rn(thr, static_cast<float>(mx));
-  if (!valid || sp == sc || reject) return 0;
-  const bool big = (10 * mn <= mx && total >= 10) ||
-                   (sp < 10 && sc >= 10) || (sp >= 10 && sc < 10);
-  const unsigned wclass = vt == t_danger ? 1u : (big ? 3u : 2u);
-  unsigned code = wclass;
-  if (sp > sc) code |= kToH1;
-  if (total <= 10) {
-    code |= kSmall;
-  } else if (5 * mn < mx && wclass >= 2u && vt != t_indel) {
-    code |= kElig;
-  }
-  return static_cast<uint8_t>(code);
-}
 
 // Grid-wide pre-pass: warp y of block b takes site t = b*kCastRows + y and
 // lane l the columns c = l, l+32, ... of its Wp-byte code row.

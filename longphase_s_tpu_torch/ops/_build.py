@@ -4,7 +4,7 @@ Each ``csrc/*.cu`` file is compiled by its own ``nvcc`` into a shared
 library with a plain C interface (no PyTorch headers, so a build takes
 seconds), all of them started together, at first use, into
 ``longphase_s_tpu_torch/_build/`` under names keyed by a hash of the
-source and the flags. ``ptxas`` reports each kernel's registers, shared
+source, the shared ``csrc/*.cuh`` headers and the flags. ``ptxas`` reports each kernel's registers, shared
 memory and spills into a ``.ptxas.txt`` file beside its library
 (``ptxas_report``). A failed build raises. Nothing here runs at import
 time: the CPU tests import every module on machines without ``nvcc``.
@@ -30,16 +30,23 @@ BUILD_DIR = os.path.join(_PKG, "_build")
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-O3",
               "-std=c++17", "-shared", "-Xcompiler", "-fPIC", "-Xptxas=-v")
 
-LAUNCHES: dict[str, int] = {"vote_cast": 0, "vote_scan": 0, "pair_pack": 0}
+LAUNCHES: dict[str, int] = {"vote_cast": 0, "vote_scan": 0,
+                            "bucket_count": 0, "bucket_scatter": 0,
+                            "pair_cast": 0}
 
 _P = ctypes.c_void_p
 _I = ctypes.c_int
+_L = ctypes.c_longlong
 _F = ctypes.c_float
 _SIGNATURES = {
     "lps_vote_cast": [_P, _P, _P, _P, _I, _I, _I, _I, _I, _F,
                       _I, _I, _I, _I, _P, _P, _P],
     "lps_vote_scan": [_P, _P, _I, _I, _I, _P, _P, _P, _P],
-    "lps_pair_pack": [_P, _P, _P, _P, ctypes.c_longlong, _I, _I, _P, _P, _P],
+    "lps_pair_tile": [_I, _I],
+    "lps_bucket_count": [_P, _P, _L, _I, _I, _P, _P],
+    "lps_bucket_scatter": [_P, _P, _L, _I, _I, _P, _P, _P],
+    "lps_pair_cast": [_P, _P, _P, _P, _L, _P, _P, _P, _P, _I, _I, _I, _I,
+                      _I, _I, _F, _I, _I, _I, _I, _P, _P, _P],
 }
 
 _lock = threading.Lock()
@@ -56,9 +63,13 @@ def sources() -> list[str]:
 
 
 def _library_path(source: str) -> str:
+    """Keyed by the flags, the source and every shared header."""
     h = hashlib.sha256(" ".join(NVCC_FLAGS).encode())
-    with open(source, "rb") as f:
-        h.update(f.read())
+    headers = sorted(os.path.join(CSRC_DIR, f) for f in os.listdir(CSRC_DIR)
+                     if f.endswith(".cuh"))
+    for path in (source, *headers):
+        with open(path, "rb") as f:
+            h.update(f.read())
     stem = os.path.splitext(os.path.basename(source))[0]
     return os.path.join(BUILD_DIR, f"lib{stem}_{h.hexdigest()[:16]}.so")
 

@@ -131,26 +131,68 @@ def test_vote_scan_kernel_refuses_empty_window(cuda_device):
                                edge_threshold_x10=7.0)
 
 
-@pytest.mark.parametrize("seed", [0, 1])
-def test_pair_pack_kernel_matches_plain(cuda_device, seed):
-    rng = np.random.default_rng(seed)
-    S, n = 2000, 60000
-    read = np.sort(rng.integers(0, 1000, n)).astype(np.int32)
-    rank = np.empty(n, np.int32)
-    for r in np.unique(read):  # contiguous rank runs per read
-        idx = np.nonzero(read == r)[0]
-        rank[idx] = np.sort(rng.integers(0, S, len(idx)))
-    read[-50:] = -1
-    allele = rng.integers(0, 2, n).astype(np.int8)
-    qok = rng.random(n) < 0.8
-    stream = fused.stream_to_device(read, rank, allele, qok, cuda_device)
-    before = _build.LAUNCHES["pair_pack"]
-    got = fused.pair_sums(*stream, S, W)
+def _pair_stream(rng, S, shuffle_reads):
+    """A 20x merged stream over S sites: reads of 1-90 contiguous ranks
+    with 5% of calls dropped, 3% of rows repeated as split alignments
+    with a random allele, 50 trailing m_read == -1 rows; with
+    ``shuffle_reads`` the reads come in random order."""
+    n_reads = max(2, S * 20 // 60)
+    lengths = rng.integers(1, 91, n_reads)
+    starts = rng.integers(0, S, n_reads)
+    read, rank = [], []
+    for r in (rng.permutation(n_reads) if shuffle_reads else range(n_reads)):
+        ranks = np.arange(starts[r], min(S, starts[r] + lengths[r]))
+        ranks = ranks[rng.random(len(ranks)) > 0.05]
+        ranks = np.repeat(ranks, np.where(rng.random(len(ranks)) < 0.03, 2, 1))
+        read.append(np.full(len(ranks), r))
+        rank.append(ranks)
+    read = np.concatenate(read + [np.full(50, -1)]).astype(np.int32)
+    rank = np.concatenate(rank + [np.zeros(50, int)]).astype(np.int32)
+    allele = rng.integers(0, 2, len(read)).astype(np.int8)
+    qok = rng.random(len(read)) < 0.9
+    return read, rank, allele, qok
+
+
+@pytest.mark.parametrize("shuffle_reads", [False, True])
+@pytest.mark.parametrize("window", [1, 32, 33, 35, 100, 128, 129, 200])
+@pytest.mark.parametrize("S", [1, 33, 300, 4096, 16384])
+def test_pair_cast_kernel_matches_plain(cuda_device, S, window,
+                                        shuffle_reads):
+    """Every tile height the kernel picks (T = 128 down to 8 over these
+    windows), windows cut to S-1 (W > S), duplicates, padding and any read
+    order; one launch of each of the three kernels a call."""
+    rng = np.random.default_rng(S * 1000 + window * 2 + shuffle_reads)
+    stream = fused.stream_to_device(*_pair_stream(rng, S, shuffle_reads),
+                                    cuda_device)
+    gap = torch.from_numpy(rng.choice([100, 400000], S, p=[0.95, 0.05])
+                           .astype(np.int32)).to(cuda_device)
+    vtype = torch.from_numpy(rng.integers(0, 5, S).astype(np.int8)) \
+        .to(cuda_device)
+    kw = dict(S=S, window=window, distance=300000, edge_threshold_x10=3.3)
+    before = dict(_build.LAUNCHES)
+    codes, site = fused.pair_codes(stream, gap, vtype, **kw)
     torch.cuda.synchronize()
-    assert _build.LAUNCHES["pair_pack"] == before + 1
-    ref = fused.pair_sums(*(x.cpu() for x in stream), S, W)
-    for g, r in zip(got, ref):
-        assert torch.equal(g.cpu(), r)
+    for name in ("bucket_count", "bucket_scatter", "pair_cast"):
+        assert _build.LAUNCHES[name] == before[name] + 1, name
+    ref_codes, ref_site = fused.pair_codes_plain(stream, gap, vtype, **kw)
+    assert torch.equal(codes, ref_codes)
+    assert torch.equal(site, ref_site)
+    if S >= 300:  # random alleles: few pairs decide at W = 1
+        assert int((codes != 0).sum()) > 10
+
+
+def test_pair_cast_refuses_a_window_too_wide_for_shared_memory(cuda_device):
+    S = 40000
+    stream = fused.stream_to_device(np.zeros(4, np.int32),
+                                    np.arange(4, dtype=np.int32),
+                                    np.zeros(4, np.int8), np.ones(4, bool),
+                                    cuda_device)
+    gap = torch.full((S,), 100, dtype=torch.int32, device=cuda_device)
+    vtype = torch.zeros(S, dtype=torch.int8, device=cuda_device)
+    before = dict(_build.LAUNCHES)
+    with pytest.raises(ValueError, match="too wide"):
+        fused.pair_codes(stream, gap, vtype, S, 30000, 300000, 7.0)
+    assert _build.LAUNCHES == before
 
 
 def _tag_walk(rng, S, A, No):

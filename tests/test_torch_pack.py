@@ -1,5 +1,6 @@
-"""Pair-pack parity: the port's pair sums (the CPU side of
-longphase_s_tpu_torch/ops/fused.py:pair_sums) against the JAX package's
+"""Pair-sum parity: the port's plain pair sums
+(longphase_s_tpu_torch/ops/fused.py:pair_sums_plain, the reference of the
+sums the pair_cast kernel keeps in shared memory) against the JAX package's
 scatter pack (device_pair_counts, folded to x10 sums) on merged streams
 with shared read names, and against its Gram-matmul pack (mxu_pc_counts over
 build_tiles) on unique streams. Exact equality: the sums are integers."""
@@ -14,7 +15,7 @@ from longphase_s_tpu.core.fastpath import merge_observations
 from longphase_s_tpu.core.phase_algo import PhaseParams
 from longphase_s_tpu.ops.fused import device_pair_counts
 from longphase_s_tpu.ops.mxu_pack import build_tiles, mxu_pc_counts
-from longphase_s_tpu_torch.ops.fused import pair_sums, stream_to_device
+from longphase_s_tpu_torch.ops.fused import pair_sums_plain, stream_to_device
 
 W = 35
 _scatter_pack = jax.jit(device_pair_counts, static_argnums=(4, 5))
@@ -59,7 +60,7 @@ def _folded_scatter(m_read, m_rank, m_allele, m_qok, S):
 
 
 def _port(m_read, m_rank, m_allele, m_qok, S):
-    s_para10, s_cross10 = pair_sums(
+    s_para10, s_cross10 = pair_sums_plain(
         *stream_to_device(m_read, m_rank, m_allele, m_qok, "cpu"), S, W)
     assert s_para10.dtype == torch.int32 and s_para10.shape == (S, W)
     return s_para10.numpy(), s_cross10.numpy()
