@@ -98,11 +98,31 @@ printed as it ends:
    (``run_fused_phase_wavefront``) over four blocks a chromosome on
    ``cuda:0`` equal to phase 8's batch; ``cli phase`` with
    ``LPS_WAVEFRONT=1`` on phase 8's 5-chromosome fixture equal to the
-   oracle's VCF, launching the carry kernel.
+   oracle's VCF, launching the carry kernel;
+10. processes sharing the card (``parallel/distributed.py``: a gloo group
+   over 127.0.0.1, every process a fresh interpreter that imports only
+   the port, on ``cuda:{pid % count}``): (a) phase 8's genome, written
+   once to an ``.npz``, in 2 processes, each running
+   ``run_fused_phase_multichip`` on its ``shard_contigs`` and
+   ``merge_chr_results`` of the result dicts, the merged dict equal to
+   phase 8's batch at W = 35 on every site, with each process's step and
+   merge walls and the bytes it gathered; (b) ``cli phase --device cuda
+   --dist`` in 1, 2 and 4 processes on phase 8's 5-chromosome fixture, the
+   VCF equal to phase 8's, every process that owns a contig launching the
+   flat path's kernels, then 2 processes with ``LPS_MULTICHIP=1`` and
+   ``--checkpoint`` twice (the second resumes, the VCFs equal); (c) on
+   phase 8's 3-chromosome tumour/normal fixture, the device engine on
+   ``cuda``: ``haplotag``, ``somatic_haplotag --output-somatic-vcf`` and
+   ``estimate_purity`` in 2 processes equal to the one-process device runs
+   (tags, ``_sc.vcf``, ``_purity.out`` with a purity above 0), every
+   process calling its reductions on the card; (d) ``cli modcall`` in 2
+   processes on a 3-chromosome methylation fixture, the VCF equal to the
+   one-process run's, every process counting its edges on the card; the
+   four 2-process runs of (c) and (d) start at once.
 
-The simulated fixtures of phases 4 and 6-8 are built from the start, one
-after another in one worker process, while the card runs the earlier
-phases.
+The simulated fixtures of phases 4 and 6-8 and 10 are built from the
+start, one after another in one worker process, while the card runs the
+earlier phases.
 
 Phase 5 also times the somatic batch (``somatic_counts_batched``) on its
 walk cut into three chromosomes, against the three per-chromosome calls.
@@ -118,8 +138,12 @@ JSON line of kernels holds ``vote_scan`` twice: one chromosome a launch
 (``"path": "flat"``) and the genome's segments in one launch (``"path":
 "batched"``); and ``vote_scan_carry``, the same kernel launched with a
 carry (phase 9: launches from ``cli phase`` with ``LPS_WAVEFRONT=1``, time
-and bound of chr1's four blocks). Any failed phase raises, and the script
-exits non-zero without that line.
+and bound of chr1's four blocks); each flat-path kernel's entry also holds
+``dist_launches``, its launches in each process of phase 10's 2-process
+``cli phase``. Before the last line, one JSON line of phase 10's processes
+(walls, launches, device calls, bytes gathered). Any failed phase raises,
+a worker that fails or times out included (its stderr tail in the
+message), and the script exits non-zero without that line.
 """
 
 from __future__ import annotations
@@ -180,7 +204,10 @@ FIXTURES = {
                                               base_length=60000)),
     "multi_som": ("make_multichrom_somatic_fixture",
                   dict(seed=23, n_chroms=3, base_length=120000)),
+    "multi_meth": ("make_multichrom_meth_fixture", dict(seed=5, n_chroms=3)),
 }
+# the genome's stream keys phase 8 writes for phase 10's processes
+GENOME_KEYS = ("positions", "vtype", "m_read", "m_rank", "m_allele", "m_qok")
 
 
 class SmokeFailure(RuntimeError):
@@ -806,12 +833,7 @@ def phase4_end_to_end(workdir: str, fixtures) -> dict:
     oracle_wall = time.perf_counter() - t0
     check(rc == 0, f"cli phase --engine oracle returned {rc}")
 
-    def body(prefix):
-        with open(prefix + ".vcf") as f:
-            return [line for line in f
-                    if not line.startswith(("##longphase", "##commandline"))]
-
-    gpu_vcf, oracle_vcf = body(out_gpu), body(out_oracle)
+    gpu_vcf, oracle_vcf = _vcf_body(out_gpu), _vcf_body(out_oracle)
     n_phased = sum(1 for line in gpu_vcf
                    if not line.startswith("#") and "|" in line.split("\t")[-1])
     check(gpu_vcf == oracle_vcf, "cuda VCF differs from the oracle VCF")
@@ -831,7 +853,7 @@ def phase4_end_to_end(workdir: str, fixtures) -> dict:
     check(rc == 0, f"cli phase -a 100 --device cuda returned {rc}")
     rc = cli.main(wide + ["-o", out_oracle + "_a100", "--engine", "oracle"])
     check(rc == 0, f"cli phase -a 100 --engine oracle returned {rc}")
-    check(body(out_gpu + "_a100") == body(out_oracle + "_a100"),
+    check(_vcf_body(out_gpu + "_a100") == _vcf_body(out_oracle + "_a100"),
           "cuda VCF differs from the oracle VCF at -a 100")
     say(f"phase 4 -a 100: cli phase --device cuda {wide_wall} s, VCF "
         "identical to --engine oracle")
@@ -856,8 +878,8 @@ def phase4_end_to_end(workdir: str, fixtures) -> dict:
     rc = cli.main(obj + ["-o", out_obj + "_oracle", "--engine", "oracle"])
     check(rc == 0, "cli phase --engine oracle on the object path's fixture "
           f"returned {rc}")
-    obj_vcf = body(out_obj)
-    check(obj_vcf == body(out_obj + "_oracle"),
+    obj_vcf = _vcf_body(out_obj)
+    check(obj_vcf == _vcf_body(out_obj + "_oracle"),
           "object-path cuda VCF differs from the oracle VCF")
     check(sum("|" in line for line in obj_vcf) > 50,
           "the object path phased too few records")
@@ -1220,6 +1242,21 @@ def _tags(bam_path):
     return out
 
 
+def _vcf_body(prefix):
+    """``prefix.vcf`` without its ``##longphase`` and ``##commandline``
+    lines, the ones that name the program and its arguments."""
+    with open(prefix + ".vcf") as f:
+        return [line for line in f
+                if not line.startswith(("##longphase", "##commandline"))]
+
+
+def _text(path):
+    """The lines of ``path`` but its ``##commandline``; it must exist."""
+    check(os.path.exists(path), f"{path} was not written")
+    with open(path) as f:
+        return [line for line in f if not line.startswith("##commandline")]
+
+
 def _run_engines(label, argv, prefix, reductions, outputs):
     """``cli`` with the device engine on ``cuda``, then with the host
     engine; the device-call counts from the device run must cover
@@ -1286,11 +1323,6 @@ def phase6_tag_pipelines(workdir: str, fixtures, phase4_fx,
             fx["normal_bam"], "--tumor-bam-file", fx["tumor_bam"], "-r",
             fx["fasta"]]
 
-    def text(path):
-        check(os.path.exists(path), f"{path} was not written")
-        with open(path) as f:
-            return [line for line in f if not line.startswith("##commandline")]
-
     def purity(lines):
         value = float(lines[-1].rsplit(":", 1)[1])
         check(value > 0, f"purity {value} is not above 0")
@@ -1300,8 +1332,8 @@ def phase6_tag_pipelines(workdir: str, fixtures, phase4_fx,
         "somatic_haplotag", ["somatic_haplotag", *pair, "--output-somatic-vcf"],
         os.path.join(workdir, "somatic"),
         ["somatic_normal", "somatic_extract", "somatic_haplotag"],
-        lambda p: (_tags(p + ".bam"), text(p + "_sc.vcf"),
-                   text(p + "_purity.out")))
+        lambda p: (_tags(p + ".bam"), _text(p + "_sc.vcf"),
+                   _text(p + "_purity.out")))
     add_calls(c)
     n_somatic = sum(line.split("	")[6] == "PASS" for line in sc
                     if not line.startswith("#"))
@@ -1314,7 +1346,7 @@ def phase6_tag_pipelines(workdir: str, fixtures, phase4_fx,
         "estimate_purity", ["estimate_purity", *pair],
         os.path.join(workdir, "purity"),
         ["somatic_normal", "somatic_extract"],
-        lambda p: text(p + "_purity.out"))
+        lambda p: _text(p + "_purity.out"))
     say(f"phase 6 estimate_purity: device engine {walls['device']} s, host "
         f"engine {walls['host']} s; _purity.out equal (purity "
         f"{purity(pur)}); device calls {c}")
@@ -1480,9 +1512,7 @@ def phase7_modcall(rng, dev, workdir: str, fixtures) -> dict:
     fx = fixtures.get("meth")
 
     def body(prefix):
-        with open(prefix + ".vcf") as f:
-            lines = [line for line in f
-                     if not line.startswith(("##longphase", "##commandline"))]
+        lines = _vcf_body(prefix)
         check(any(not line.startswith("#") for line in lines),
               f"{prefix}.vcf has no record")
         return lines
@@ -1615,6 +1645,14 @@ def phase8_genome(rng, dev, workdir: str, fixtures) -> dict:
     say(f"phase 8 inputs: {len(entries)} chromosomes, {S_tot} sites "
         f"(chr1 {sizes[0]}), {n_obs} observations, built in "
         f"{time.perf_counter() - t0:.3f} s")
+    # once, for phase 10's processes (m_aln is m_read: a read a alignment)
+    npz = os.path.join(workdir, "genome.npz")
+    t0 = time.perf_counter()
+    np.savez(npz, chroms=np.array([e["chrom"] for e in entries]),
+             **{f"{e['chrom']}/{k}": e[k] for e in entries
+                for k in GENOME_KEYS + ("n_aln",)})
+    say(f"phase 8 genome written for phase 10: {os.path.getsize(npz)} bytes "
+        f"in {time.perf_counter() - t0:.3f} s")
     subset = slice(18, 22)  # chr19-22
     out = {}
     for window in (W, 100):
@@ -1650,7 +1688,7 @@ def phase8_genome(rng, dev, workdir: str, fixtures) -> dict:
         n_phased = sum(int((ps != 0).sum()) for ps, _ in batched)
         check(n_phased > S_tot // 2, f"only {n_phased} of {S_tot} phased")
         if window == W:
-            out["batched"] = batched
+            out["batched"], out["batched_walls"] = batched, walls
 
         torch.cuda.synchronize()
         torch.cuda.reset_peak_memory_stats(dev)
@@ -1749,11 +1787,6 @@ def phase8_genome(rng, dev, workdir: str, fixtures) -> dict:
     argv = ["phase", "--pb", "-s", fx["vcf"], "-b", fx["bam"], "-r",
             fx["fasta"]]
 
-    def body(prefix):
-        with open(prefix + ".vcf") as f:
-            return [line for line in f
-                    if not line.startswith(("##longphase", "##commandline"))]
-
     vcfs, runs = {}, {}
     for label, env, extra in (("batched", "1", ["--device", "cuda"]),
                               ("per-chromosome", "0", ["--device", "cuda"]),
@@ -1765,7 +1798,7 @@ def phase8_genome(rng, dev, workdir: str, fixtures) -> dict:
         rc = cli.main(argv + ["-o", prefix] + extra)
         runs[label] = (time.perf_counter() - t0, dict(_build.LAUNCHES))
         check(rc == 0, f"cli phase ({label}) returned {rc}")
-        vcfs[label] = body(prefix)
+        vcfs[label] = _vcf_body(prefix)
     os.environ.pop("LPS_MULTICHIP")
     check(vcfs["batched"] == vcfs["oracle"] == vcfs["per-chromosome"],
           "cli phase LPS_MULTICHIP=1 VCF differs from the oracle's or the "
@@ -1801,13 +1834,13 @@ def phase8_genome(rng, dev, workdir: str, fixtures) -> dict:
               f"cli somatic_haplotag LPS_MULTICHIP={env} returned non-zero")
         wall = time.perf_counter() - t0
         calls[env] = (wall, dict(tk.DEVICE_CALLS))
-        with open(prefix + "_sc.vcf") as f:
-            sc = [line for line in f if not line.startswith("##commandline")]
-        results[env] = (_tags(prefix + ".bam"), sc)
+        results[env] = (_tags(prefix + ".bam"), _text(prefix + "_sc.vcf"))
     os.environ.pop("LPS_MULTICHIP")
     os.environ.pop("LPS_TAG_ENGINE")
     check(results["1"] == results["0"], "somatic_haplotag LPS_MULTICHIP=1 "
           "differs from LPS_MULTICHIP=0")
+    out["som"] = dict(fx=fx, phased=phased + ".vcf", single=results["0"],
+                      wall=calls["0"][0])
     batched_calls = calls["1"][1]
     check(batched_calls["somatic_batched"] == 3 and not any(
         batched_calls[f"somatic_{m}"] for m in ("normal", "extract",
@@ -1819,6 +1852,7 @@ def phase8_genome(rng, dev, workdir: str, fixtures) -> dict:
         f"LPS_MULTICHIP=0; walls and device calls {calls}")
     out["cli_launches"] = cli_launches["vote_scan"]
     out["entries"], out["oracle_vcf"] = entries, vcfs["oracle"]
+    out["npz"], out["multi_walls"] = npz, {k: v[0] for k, v in runs.items()}
     return out
 
 
@@ -1908,11 +1942,8 @@ def phase9_carry(dev, workdir: str, fixtures, genome) -> dict:
         os.environ.pop("LPS_MULTICHIP")
         os.environ.pop("LPS_WAVEFRONT")
     check(rc == 0, f"cli phase LPS_WAVEFRONT=1 returned {rc}")
-    with open(prefix + ".vcf") as f:
-        vcf = [line for line in f
-               if not line.startswith(("##longphase", "##commandline"))]
-    check(vcf == genome["oracle_vcf"], "cli phase LPS_WAVEFRONT=1 VCF "
-          "differs from the oracle's")
+    check(_vcf_body(prefix) == genome["oracle_vcf"], "cli phase "
+          "LPS_WAVEFRONT=1 VCF differs from the oracle's")
     check(launches["vote_scan_carry"] > 0 and launches["vote_scan"] == 0
           and all(launches[k] == 1 for k in FLAT_PATH if k != "vote_scan"),
           f"cli phase LPS_WAVEFRONT=1 did not run the wavefront: {launches}")
@@ -1920,6 +1951,236 @@ def phase9_carry(dev, workdir: str, fixtures, genome) -> dict:
         f"equal to the oracle's; launches {launches}")
     return dict(ms=sharded_ms[n_blocks], plain_ms=1000 * plain_s, err=err,
                 bound=bound, launches=launches["vote_scan_carry"])
+
+
+# phase 10 (a): one process of the group on its shard of phase 8's genome
+GENOME_WORKER = """
+import json, sys, time
+t0 = time.perf_counter()
+import numpy as np
+from longphase_s_tpu_torch.core.fastpath import phased_records
+from longphase_s_tpu_torch.core.phase_algo import PhaseParams
+from longphase_s_tpu_torch.ops import _build
+from longphase_s_tpu_torch.parallel import distributed as dist
+from longphase_s_tpu_torch.parallel.multichip import run_fused_phase_multichip
+from longphase_s_tpu_torch.utils.device import resolve_device
+npz, window, out_path, keys, spec = sys.argv[1:]
+dist.init_from_spec(spec)
+dev = resolve_device(dist.local_device("cuda"))
+z = np.load(npz)
+entries = []
+for c in dist.shard_contigs([str(c) for c in z["chroms"]]):
+    e = {k: z[f"{c}/{k}"] for k in keys.split(",")}
+    e.update(chrom=c, m_aln=e["m_read"], n_aln=int(z[f"{c}/n_aln"]))
+    entries.append(e)
+load_s = time.perf_counter() - t0
+params = PhaseParams(connect_adjacent=int(window))
+run_fused_phase_multichip(entries, params, dev)  # warm-up
+_build.reset_launches()
+t1 = time.perf_counter()
+outs = run_fused_phase_multichip(entries, params, dev)
+step_s = time.perf_counter() - t1
+launches = dict(_build.LAUNCHES)
+t1 = time.perf_counter()
+results = {e["chrom"]: phased_records(e["chrom"], e["positions"], ps, ori)
+           for e, (ps, ori) in zip(entries, outs)}
+records_s = time.perf_counter() - t1
+t1 = time.perf_counter()
+merged = dist.merge_chr_results(results)
+merge_s = time.perf_counter() - t1
+if dist.is_writer():
+    with open(out_path, "w") as f:
+        json.dump(merged, f)
+print("LPS_PROCESS_REPORT " + json.dumps({
+    "pid": dist.process_id(), "device": str(dev),
+    "chroms": [e["chrom"] for e in entries],
+    "sites": sum(len(e["positions"]) for e in entries),
+    "phased": sum(len(r) for r in results.values()),
+    "load_s": load_s, "step_s": step_s, "records_s": records_s,
+    "merge_s": merge_s, "gathered": dict(dist.GATHERED),
+    "launches": launches, "wall": time.perf_counter() - t0,
+    "leaked": sorted(m for m in sys.modules
+                     if m.split(".")[0] in ("jax", "longphase_s_tpu"))}),
+      flush=True)
+"""
+
+
+def phase10_processes(workdir: str, fixtures, genome) -> dict:
+    """Processes sharing the card (see the module docstring)."""
+    from longphase_s_tpu_torch import cli
+    from longphase_s_tpu_torch.core.fastpath import phased_records
+    from longphase_s_tpu_torch.testing import processes
+
+    timeout = 300
+    out = {}
+
+    def check_reports(label, reports, nprocs):
+        check(len(reports) == nprocs and all(
+            r["device"] == ("cuda:0" if nprocs > 1 else "cuda")
+            and not r["leaked"] for r in reports),
+            f"{label}: a process ran elsewhere than its card or imported "
+            f"JAX: {reports}")
+
+    # (a) the genome through the collectives
+    merged_path = os.path.join(workdir, "genome_merged.json")
+    spec = f"127.0.0.1:{processes.free_port()},2"
+    t0 = time.perf_counter()
+    reports = processes.reports(processes.finish(processes.start(
+        GENOME_WORKER, [[genome["npz"], str(W), merged_path,
+                         ",".join(GENOME_KEYS), f"{spec},{pid}"]
+                        for pid in range(2)], ROOT), timeout))
+    wall = time.perf_counter() - t0
+    check(all(r["device"] == "cuda:0" and not r["leaked"] for r in reports)
+          and all(r["launches"][k] == 1 for r in reports for k in FLAT_PATH),
+          f"phase 10 genome: a process did not launch each flat-path kernel "
+          f"once on its card: {reports}")
+    with open(merged_path) as f:
+        merged = {c: {k: (v[0], v[1]) for k, v in d.items()}
+                  for c, d in json.load(f).items()}
+    want = {e["chrom"]: phased_records(e["chrom"], e["positions"], ps, ori)
+            for e, (ps, ori) in zip(genome["entries"], genome["batched"])}
+    check(merged == want, "phase 10 genome: the merged result of 2 "
+          "processes differs from phase 8's batch")
+    n_sites = sum(len(d) for d in merged.values())
+    steps = [r["step_s"] for r in reports]
+    moved = [(r["gathered"]["sent"], r["gathered"]["received"])
+             for r in reports]
+    say(f"phase 10 genome in 2 processes on one card: merged {n_sites} "
+        f"phased sites equal to phase 8's batch (W={W}); step walls {steps} "
+        f"s (sum {sum(steps)}) against phase 8's batched step "
+        f"{genome['batched_walls']} s; record dicts "
+        f"{[r['records_s'] for r in reports]} s, merge "
+        f"{[r['merge_s'] for r in reports]} s (in the gather "
+        f"{[r['gathered']['seconds'] for r in reports]} s, the rest JSON), "
+        f"bytes sent / received a rank {moved}; start and load "
+        f"{[r['load_s'] for r in reports]} s, process walls "
+        f"{[r['wall'] for r in reports]} s, {wall} s in all")
+    out["genome"] = reports
+
+    # (b) cli phase in 1, 2 and 4 processes, then the checkpointed batch
+    fx = fixtures.get("multi")
+    argv = ["phase", "--pb", "-s", fx["vcf"], "-b", fx["bam"], "-r",
+            fx["fasta"], "--device", "cuda"]
+    walls = {}
+    for n in (1, 2, 4):
+        prefix = os.path.join(workdir, f"dist_phase_{n}")
+        reports = processes.run_cli(argv + ["-o", prefix], n, ROOT,
+                                    timeout=timeout)
+        check_reports(f"cli phase in {n} processes", reports, n)
+        check(_vcf_body(prefix) == genome["oracle_vcf"],
+              f"cli phase in {n} processes: VCF differs from phase 8's")
+        check(all(r["launches"][k] > 0 for r in reports for k in FLAT_PATH),
+              f"cli phase in {n} processes: a process launched no flat-path "
+              f"kernel: {[r['launches'] for r in reports]}")
+        walls[n] = [r["wall"] for r in reports]
+        out[f"phase_{n}"] = reports
+    say(f"phase 10 cli phase on 5 chromosomes: VCF equal to phase 8's in 1, "
+        f"2 and 4 processes; process walls {walls} s (phase 8 in-process: "
+        f"{genome['multi_walls']} s); launches "
+        f"{[[r['launches'][k] for k in FLAT_PATH] for r in out['phase_2']]} "
+        f"(2 processes), "
+        f"{[[r['launches'][k] for k in FLAT_PATH] for r in out['phase_4']]} "
+        f"(4 processes) of {FLAT_PATH}")
+    prefix = os.path.join(workdir, "dist_ckpt")
+    argv_ckpt = argv + ["-o", prefix, "--checkpoint", prefix + "_d"]
+    env = dict(os.environ, LPS_MULTICHIP="1")
+    runs = []
+    for _ in range(2):
+        results = processes.finish(processes.start(
+            processes.CLI_WORKER, processes.dist_args(argv_ckpt, 2), ROOT,
+            env), timeout)
+        reports = processes.reports(results)
+        check_reports("cli phase --checkpoint in 2 processes", reports, 2)
+        check(_vcf_body(prefix) == genome["oracle_vcf"],
+              "cli phase LPS_MULTICHIP=1 --checkpoint in 2 processes: VCF "
+              "differs from phase 8's")
+        runs.append((reports, [err for _rc, _o, err in results]))
+    check(all(r["launches"][k] == 1 for r in runs[0][0] for k in FLAT_PATH),
+          f"the checkpointed batch did not launch each kernel once a "
+          f"process: {[r['launches'] for r in runs[0][0]]}")
+    check(all("checkpoint: resumed" in err for err in runs[1][1])
+          and not any(r["launches"]["vote_scan"] for r in runs[1][0]),
+          "the second checkpointed run did not resume every contig")
+    say(f"phase 10 cli phase LPS_MULTICHIP=1 --checkpoint in 2 processes: "
+        f"VCF equal, then resumed and equal; process walls "
+        f"{[[r['wall'] for r in reports] for reports, _e in runs]} s")
+
+    # (c) the tag family and (d) modcall on the device engine
+    som = genome["som"]
+    sfx = som["fx"]
+    pair = ["-s", som["phased"], "--tumor-snv-file", sfx["tumor_vcf"], "-b",
+            sfx["normal_bam"], "--tumor-bam-file", sfx["tumor_bam"], "-r",
+            sfx["fasta"], "--device", "cuda"]
+    hap = ["haplotag", "-s", som["phased"], "-b", sfx["normal_bam"], "-r",
+           sfx["fasta"], "--device", "cuda"]
+    env = dict(os.environ, LPS_TAG_ENGINE="device")
+
+    def single_run(args, prefix):
+        """``cli`` in this process on the device engine; its wall."""
+        os.environ["LPS_TAG_ENGINE"] = "device"
+        try:
+            t0 = time.perf_counter()
+            check(cli.main(args + ["-o", prefix]) == 0,
+                  f"cli {args[0]} returned non-zero")
+            return time.perf_counter() - t0
+        finally:
+            os.environ.pop("LPS_TAG_ENGINE")
+
+    single = {"somatic_haplotag": som["wall"]}
+    single["haplotag"] = single_run(hap, os.path.join(workdir, "single_hap"))
+    single["estimate_purity"] = single_run(
+        ["estimate_purity", *pair], os.path.join(workdir, "single_pur"))
+    mfx = fixtures.get("multi_meth")
+    mod = ["modcall", "-b", mfx["bam"], "-r", mfx["fasta"], "-s", mfx["vcf"],
+           "--device", "cuda"]
+    single["modcall"] = single_run(mod, os.path.join(workdir, "single_mod"))
+    cases = (
+        ("haplotag", hap, ["germline"], lambda p: _tags(p + ".bam"),
+         _tags(os.path.join(workdir, "single_hap.bam"))),
+        ("somatic_haplotag", ["somatic_haplotag", *pair,
+                              "--output-somatic-vcf"],
+         ["somatic_normal", "somatic_extract", "somatic_haplotag"],
+         lambda p: (_tags(p + ".bam"), _text(p + "_sc.vcf")), som["single"]),
+        ("estimate_purity", ["estimate_purity", *pair],
+         ["somatic_normal", "somatic_extract"],
+         lambda p: _text(p + "_purity.out"),
+         _text(os.path.join(workdir, "single_pur_purity.out"))),
+        ("modcall", mod, ["modcall_edges"], _vcf_body,
+         _vcf_body(os.path.join(workdir, "single_mod"))))
+    # (c) and (d) together: four groups of 2 processes, started at once
+    groups = [processes.start(processes.CLI_WORKER, processes.dist_args(
+        args + ["-o", os.path.join(workdir, f"dist_{label}")], 2), ROOT, env)
+        for label, args, *_ in cases]
+    tag_walls = {}
+    try:
+        for (label, _args, reductions, outputs, want), procs in zip(cases,
+                                                                    groups):
+            reports = processes.reports(processes.finish(procs, timeout))
+            check_reports(f"{label} in 2 processes", reports, 2)
+            check(outputs(os.path.join(workdir, f"dist_{label}")) == want,
+                  f"{label} in 2 processes differs from the one-process "
+                  "device run")
+            check(all(r["device_calls"][k] > 0 for r in reports
+                      for k in reductions), f"{label} in 2 processes: a "
+                  f"process ran no reduction on the card: "
+                  f"{[r['device_calls'] for r in reports]}")
+            tag_walls[label] = [r["wall"] for r in reports]
+            out[label] = reports
+    finally:
+        for p in (p for procs in groups for p in procs):
+            if p.poll() is None:
+                p.kill()
+    purity = float(cases[2][4][-1].rsplit(":", 1)[1])
+    check(purity > 0, f"purity {purity} is not above 0")
+    check(len(cases[3][4]) > 10, "modcall wrote almost nothing")
+    calls = {k: [r["device_calls"] for r in out[k]] for k in tag_walls}
+    say(f"phase 10 tag family and modcall, 2 processes each, the four runs "
+        f"at once, device engine: haplotag tags, somatic_haplotag tags and "
+        f"_sc.vcf, estimate_purity _purity.out (purity {purity}) and the "
+        f"modcall VCF ({len(cases[3][4])} lines) equal to one process; "
+        f"process walls {tag_walls} s (one process in-process: {single} "
+        f"s); device calls {calls}")
+    return out
 
 
 def main() -> int:
@@ -1943,6 +2204,7 @@ def main() -> int:
         modcall = phase7_modcall(rng, dev, wd, fixtures)
         genome = phase8_genome(rng, dev, wd, fixtures)
         carry = phase9_carry(dev, wd, fixtures, genome)
+        procs = phase10_processes(wd, fixtures, genome)
     leaked = sorted(m for m in sys.modules
                     if m.split(".")[0] in ("jax", "longphase_s_tpu"))
     check(not leaked, f"the port imported {leaked[:5]}")
@@ -1971,6 +2233,9 @@ def main() -> int:
                         "ms": t["ms"], "plain_ms": t["plain_ms"],
                         "bound_ms": bound, "bound_by": bound_by,
                         "limited_by": t["limited_by"], "library_ms": None})
+        if name in FLAT_PATH:
+            kernels[-1]["dist_launches"] = [
+                r["launches"][name] for r in procs["phase_2"]]
     # the segmented launch at phase 8's genome, W = 35; its launches from
     # cli phase with LPS_MULTICHIP=1, its plain version timed on the cpu
     # over chr19-22
@@ -2024,6 +2289,11 @@ def main() -> int:
                           genome[f"correction_{W}"]),
                          ("phase 8, genome batch, W = 100",
                           genome["correction_100"]))]}))
+    keep = ("pid", "device", "wall", "step_s", "records_s", "merge_s",
+            "load_s", "gathered", "launches", "device_calls", "chroms")
+    print(json.dumps({"processes": {
+        label: [{k: r[k] for k in keep if k in r} for r in reports]
+        for label, reports in procs.items()}}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),
         "count": torch.cuda.device_count()}}), flush=True)

@@ -10,7 +10,12 @@ phase subcommand (lines 15-54), with ``--engine oracle|gpu`` (default
 ``modcall`` takes those of JAX cli.py:161-184, with its config built as at
 :279-295, plus ``--device`` (default ``cuda``): where the methylation
 graph's edge counts run when the same gate sends a chromosome to the
-device. ``--dist`` raises.
+device. ``--dist HOST:PORT,NPROCS,PID`` (or ``LPS_DIST``) runs a
+subcommand as NPROCS processes over a gloo group
+(``parallel/distributed.py``): each process takes a round-robin shard of
+the contigs and runs its device step on its own card (a bare ``--device
+cuda`` becomes ``cuda:{PID % device_count}``), the results are
+all-gathered and process 0 writes the outputs.
 
     python -m longphase_s_tpu_torch.cli phase --pb -s snps.vcf -b reads.bam \\
         -r ref.fa -o phased --device cuda
@@ -18,6 +23,9 @@ device. ``--dist`` raises.
         -r ref.fa -o tagged --device cuda
     python -m longphase_s_tpu_torch.cli modcall -b meth.bam -r ref.fa \\
         -s snps.vcf -o modcall_result --device cuda
+    # two processes on one host, started together:
+    python -m longphase_s_tpu_torch.cli phase ... --dist 127.0.0.1:29500,2,0
+    python -m longphase_s_tpu_torch.cli phase ... --dist 127.0.0.1:29500,2,1
 """
 
 from __future__ import annotations
@@ -29,7 +37,8 @@ import sys
 from . import __version__
 
 _DEVICE_HELP = "device of the tag reductions: cuda, cuda:N or cpu"
-_DIST_HELP = "multi-host sharding; not ported yet"
+_DIST_HELP = ("run as NPROCS processes over a gloo group, each on its "
+              "contig shard and its own card; process 0 writes")
 
 
 def _add_phase_parser(sub):

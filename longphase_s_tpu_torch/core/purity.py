@@ -5,17 +5,21 @@ smoothing, peak/trend analysis, lowest-valley selection) -> box-plot outlier
 removal -> quadratic regression on (median, IQR) of the germline read-HP
 imbalance ratio.
 
-The port's copy of ``longphase_s_tpu/core/purity.py`` for one process: the
-multi-host merge of feature points and the writer-process gate are
-dropped, so every run holds all its contigs and writes ``_purity.out``.
+The port's copy of ``longphase_s_tpu/core/purity.py``. An estimator built
+over one process's contig shard (``sharded``) gathers every process's
+feature points and filter tallies (``_merge_distributed``) before its
+statistics, and only process 0 writes ``_purity.out``.
 """
 
 from __future__ import annotations
 
+import dataclasses
+import json
 import math
 import sys
 from dataclasses import dataclass, field
 
+from ..parallel import distributed as dist
 from .somatic_types import RH_H1, RH_H2
 
 import numpy as _np
@@ -73,8 +77,10 @@ class Peak:
 
 class PurityEstimator:
     def __init__(self, chr_vec, nor_base_by_chr, somatic_info_by_chr,
-                 write_log=False, result_prefix=""):
+                 write_log=False, result_prefix="", sharded=False):
         self.chr_vec = chr_vec
+        # the per-chr dicts hold this process's contig shard only
+        self.sharded = sharded
         self.nor_base = nor_base_by_chr          # chr -> {pos: PosBase}
         self.somatic_info = somatic_info_by_chr  # chr -> {pos: SomaticData}
         self.write_log = write_log
@@ -89,7 +95,7 @@ class PurityEstimator:
     def estimate(self) -> float:
         print("estimating tumor purity ... ", end="", file=sys.stderr)
         try:
-            points = self.build_points()
+            points = self._merge_distributed(self.build_points())
             if not points:
                 raise RuntimeError(
                     "Failed to build purity feature vector: empty vector")
@@ -111,6 +117,8 @@ class PurityEstimator:
             print("", file=sys.stderr)
             self.write_result(purity, plot)
             return purity
+        except dist.CollectiveError:
+            raise  # a failed gather is no local result
         except Exception as e:  # noqa: BLE001 — degrade to 0.0 like the reference
             print(f"[ERROR] {e}", file=sys.stderr)
             print("[ERROR] Failed to estimate tumor purity, set purity to 0.0",
@@ -143,7 +151,31 @@ class PurityEstimator:
                 else:
                     out.append(PurityPoint(chrom, pos, imb, nor_count))
                     self.flags[(chrom, pos)] = True
-        return out  # empty-vector error raised in estimate()
+        return out  # empty-vector error raised post-merge in estimate()
+
+    def _merge_distributed(self, points):
+        """The multi-process merge (JAX purity.py:145-172): all-gather the
+        shard's feature points and filter tallies (JSON blobs), so that the
+        global median/IQR/histogram of TumorPurityEstimator.cpp:31-84 is
+        computed over every contig. Points re-sort into ``chr_vec`` order,
+        the one-process scan order. Only for a sharded estimator under an
+        active group: an unsharded one already holds every contig."""
+        if not (self.sharded and dist.is_active()):
+            return points
+        blob = json.dumps([[p.chrom, p.pos, p.imbalance, p.read_count_nor]
+                           for p in points]).encode()
+        merged = []
+        for b in dist.allgather_bytes(blob):
+            merged.extend(PurityPoint(c, p, i, n)
+                          for c, p, i, n in json.loads(b))
+        order = {c: i for i, c in enumerate(self.chr_vec)}
+        merged.sort(key=lambda p: (order.get(p.chrom, 1 << 30), p.pos))
+        tallies = dist.psum_counters(
+            {**dataclasses.asdict(self.counts),
+             "initial_data_size": self.initial_data_size})
+        self.initial_data_size = tallies.pop("initial_data_size")
+        self.counts = FilterCounts(**tallies)
+        return merged
 
     # -- histogram / peaks ---------------------------------------------
     def find_bimodal_valley_threshold(self, points) -> int:
@@ -165,7 +197,7 @@ class PurityEstimator:
             ana.determine_trends()
             ana.find_main_peak_candidates()
             ana.set_threshold_by_valley(s_counts, s_pct, s_max)
-            if self.write_log and self.result_prefix:
+            if self.write_log and self.result_prefix and dist.is_writer():
                 ana.write_peak_valley_log(
                     self.result_prefix, counts, pct, s_counts, s_pct,
                     len(points), s_rng, s_max, 0.05, peak_thr, 0.5)
@@ -232,7 +264,7 @@ class PurityEstimator:
 
     def write_result(self, purity, plot):
         """writePurityResult (TumorPurityEstimator.cpp:375-424)."""
-        if not self.result_prefix:
+        if not self.result_prefix or not dist.is_writer():
             return
         path = self.result_prefix + "_purity.out"
         with open(path, "w") as f:

@@ -9,7 +9,9 @@ judgeSVHap), then assign the read haplotype by majority with PQ and PS
 The port's copy of ``longphase_s_tpu/models/haplotag.py``. ``run_haplotag``
 takes this package's fast path first (``models/haplotag_fast.py``, the
 judge reductions on ``cfg.device``); the object path below it serves
-``--log`` and CRAM output without a native handle.
+``--log`` and CRAM output without a native handle. Under ``--dist`` /
+``LPS_DIST`` the fast path tags each process's contig shard on its own
+card and gathers the tag segments; process 0 writes the BAM.
 """
 
 from __future__ import annotations
@@ -28,6 +30,7 @@ from ..io.cram import CramWriter, open_alignment
 from ..io.fasta import FastaFile
 from ..io.phased_vcf import (NORMAL, PHASED_HETERO, PhasedVcfReader, VcfInfo,
                              VT_DELETION, VT_INSERTION, VT_SNP)
+from ..parallel import distributed as dist
 from ..utils import StageTimer
 from ..utils.device import resolve_device
 
@@ -53,7 +56,7 @@ class HaplotagConfig:
     write_read_log: bool = False
     output_cram: bool = False
     command: str = ""
-    dist: str = ""  # multi-host spec; not ported, must be empty
+    dist: str = ""  # "host:port,nprocs,pid" multi-process spec
     device: str = "cuda"  # where the judge reductions run: cuda, cuda:N, cpu
 
 
@@ -337,7 +340,9 @@ def write_germline_log_row(f, rec, chrom, hp_count, variants_hp, count_ps,
 def run_haplotag(cfg: HaplotagConfig) -> ReadStatistics:
     from .haplotag_fast import run_haplotag_fast
 
-    device = resolve_device(cfg.device)
+    dist.init_from_spec(cfg.dist)
+    dist.maybe_init_from_env()
+    device = resolve_device(dist.local_device(cfg.device))
     fast = run_haplotag_fast(cfg, device)
     if fast is not None:
         return fast

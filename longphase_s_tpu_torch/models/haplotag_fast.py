@@ -9,7 +9,9 @@ variant) observation arrays; the judge semantics of
 ``ops/tag_kernels.germline_counts`` on a torch device, as the engine gate
 says; the native parallel BGZF writer writes the tagged BAM. Produces
 record-identical output to ``models/haplotag.run_haplotag``'s object path.
-The multi-host branches are dropped, since ``--dist`` raises on the port.
+Under an active process group (``parallel/distributed.py``) each process
+walks and judges its contig shard, the tag segments are all-gathered
+(``_gather_int_segments``) and process 0 writes the BAM.
 """
 
 from __future__ import annotations
@@ -199,6 +201,49 @@ def judge_reads(h1_cnt, h2_cnt, n_ps, percentage_threshold):
     return hp, pq, n_high_sim, n_without
 
 
+def _gather_int_segments(segs, all_rec, all_mode, all_hp, all_ps, all_pq,
+                         stats):
+    """The multi-process merge of tag segments (JAX haplotag_fast.py:
+    193-232): each process's ``(chr_vec index, records)`` segments and
+    their record/mode/HP/PS/PQ arrays go out as one ``.npz`` blob, and
+    every process gets them all back in ``chr_vec`` order (record indices
+    refer to the shared input BAM). The ``ReadStatistics`` counters are
+    summed across processes in place (``psum_counters``). The somatic tag
+    pass gathers its segments here too, its HP as the integer class that
+    its writer turns into HP:Z."""
+    import io
+
+    buf = io.BytesIO()
+
+    def cat(parts, dtype):
+        return np.concatenate(parts) if parts else np.zeros(0, dtype)
+
+    np.savez(buf, segs=np.asarray(segs, np.int64).reshape(-1, 2),
+             rec=cat(all_rec, np.int64), mode=cat(all_mode, np.uint8),
+             hp=cat(all_hp, np.int32), ps=cat(all_ps, np.int64),
+             pq=cat(all_pq, np.int32))
+    entries = []
+    for blob in dist.allgather_bytes(buf.getvalue()):
+        z = np.load(io.BytesIO(blob))
+        off = 0
+        for ci, n in z["segs"].reshape(-1, 2):
+            sl = slice(off, off + int(n))
+            entries.append((int(ci), z["rec"][sl], z["mode"][sl],
+                            z["hp"][sl], z["ps"][sl], z["pq"][sl]))
+            off += int(n)
+    entries.sort(key=lambda e: e[0])
+    counters = {f.name: getattr(stats, f.name)
+                for f in stats.__dataclass_fields__.values()
+                if f.name != "hp_count"}
+    counters.update({f"hp_{k}": v for k, v in stats.hp_count.items()})
+    for k, v in dist.psum_counters(counters).items():
+        if k.startswith("hp_"):
+            stats.hp_count[int(k[3:])] = v
+        else:
+            setattr(stats, k, v)
+    return tuple([e[i] for e in entries] for i in range(1, 6))
+
+
 def _add_sv_counts(walk, h1_cnt, h2_cnt, sv_counts, aln_mask=None):
     """Host-side SV/MOD per-read vote add (judgeSVHap,
     HaplotagStrategy.cpp:220-226): keyed by read name, so it stays off
@@ -267,31 +312,40 @@ def _judge_walk(cfg, walk, t, ref_string, sv_counts, stats, device):
 def run_haplotag_fast(cfg, device):
     """Native+vectorized run_haplotag (copy of JAX haplotag_fast.py:308-463).
     Returns ReadStatistics, or None when the configuration requires the
-    object path (read log, CRAM out without a native handle)."""
-    dist.init_from_spec(cfg.dist)
-    dist.maybe_init_from_env()
+    object path (read log, CRAM out without a native handle). Under an
+    active process group it runs or raises: the object path has no
+    shard."""
+    sharded = dist.is_active()
     if cfg.write_read_log:
+        if sharded:
+            raise RuntimeError("--dist does not support --log")
         return None
     if os.environ.get("LPS_NO_NATIVE_TAG"):
+        if sharded:
+            raise RuntimeError("--dist requires the native runtime")
         return None
 
     # whole-file handle first: one parallel container decode serves both the
     # tag walk and the writer. The container-streaming handle re-decodes
     # every container during the write replay, so it is reserved for inputs
     # past the RAM budget (where bounded memory is worth the second decode).
+    # streaming handles re-number records by window, and the sharded
+    # gather needs whole-file record indices: not under a group
     nb = native.open_native_bam(cfg.bam_file, cfg.fasta_file)
-    if (nb is None and is_cram(cfg.bam_file) and not cfg.output_cram
-            and native.available()):
+    if (nb is None and is_cram(cfg.bam_file) and not sharded
+            and not cfg.output_cram and native.available()):
         try:
             nb = native.CramStreamingBam(cfg.bam_file, cfg.fasta_file)
         except Exception:  # noqa: BLE001 — e.g. multi-ref containers
             nb = None
     if nb is None:
-        if (not cfg.output_cram and not is_cram(cfg.bam_file)
-                and native.available()
+        if (not sharded and not cfg.output_cram
+                and not is_cram(cfg.bam_file) and native.available()
                 and os.path.getsize(cfg.bam_file) > native._inmem_budget()):
             # past the RAM budget: windowed streaming handle, same flow
             nb = native.StreamingBam(cfg.bam_file)
+        elif sharded:
+            raise RuntimeError("--dist requires the native runtime")
         else:
             return None
 
@@ -338,9 +392,10 @@ def run_haplotag_fast(cfg, device):
     all_hp = []
     all_ps = []
     all_pq = []
+    segs: list[tuple[int, int]] = []  # (chr_vec index, records) a contig
 
     with timer("tag read"):
-        for chrom in chr_vec:
+        for chrom in dist.shard_contigs(chr_vec):
             if chrom not in ref_ids:
                 continue
             variants = chr_multi.get(chrom, {})
@@ -370,6 +425,14 @@ def run_haplotag_fast(cfg, device):
             all_hp.append(hp)
             all_ps.append(min_ps)
             all_pq.append(pq)
+            segs.append((chr_vec.index(chrom), len(walk["rec_idx"])))
+
+    if sharded:
+        with timer("allgather tag segments"):
+            all_rec, all_mode, all_hp, all_ps, all_pq = _gather_int_segments(
+                segs, all_rec, all_mode, all_hp, all_ps, all_pq, stats)
+        if not dist.is_writer():
+            return stats
 
     with timer("write CRAM" if cfg.output_cram else "write BAM"):
         writer = nb.tag_write_cram if cfg.output_cram else nb.tag_write

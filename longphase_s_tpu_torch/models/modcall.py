@@ -13,14 +13,17 @@ pipeline below (``MethBamParser``, ``MethylationGraph.add_edge``) stays
 host code, as in the JAX package: it serves two or more ``-b`` files and
 BAMs the native ingest declines. ``run_modcall`` sends every other
 chromosome through ``models/modcall_fast.py``, whose edge counts run on
-``cfg.device`` when the engine gate says so. The multi-host branches are
-dropped, since ``--dist`` and ``LPS_DIST`` raise on the port.
+``cfg.device`` when the engine gate says so. Under ``--dist`` /
+``LPS_DIST`` (``parallel/distributed.py``) each process calls its contig
+shard on its own card, the result lines are all-gathered and process 0
+writes the VCF.
 """
 
 from __future__ import annotations
 
+import json
 import sys
-from dataclasses import dataclass, field
+from dataclasses import dataclass, field, replace
 
 from .. import REFERENCE_VERSION
 from ..core.alleles import homopolymer_length
@@ -55,7 +58,7 @@ class ModCallConfig:
     output_all_mod: bool = False
     command: str = ""
     checkpoint_dir: str = ""  # per-contig resume (SURVEY §5; ours-only)
-    dist: str = ""  # "host:port,nprocs,pid" multi-host spec: raises
+    dist: str = ""  # "host:port,nprocs,pid" multi-process spec
     device: str = "cuda"  # where the edge counts run: cuda, cuda:N, cpu
 
 
@@ -611,11 +614,13 @@ class MethylationGraph:
 
 
 def run_modcall(cfg: ModCallConfig):
-    """JAX models/modcall.py:602-694 for one process, on ``cfg.device``
-    (resolved first: a CUDA device that is not there raises)."""
+    """JAX models/modcall.py:602-694, on ``cfg.device`` (resolved first: a
+    CUDA device that is not there raises), or under a process group on the
+    process's own card for its contig shard."""
     dist.init_from_spec(cfg.dist)
     dist.maybe_init_from_env()
-    resolve_device(cfg.device)
+    cfg = replace(cfg, device=str(resolve_device(
+        dist.local_device(cfg.device))))
     timer = StageTimer()
     with timer("parsing VCF"):
         het = (vcf_io.read_het_variants(cfg.snp_file)
@@ -627,6 +632,7 @@ def run_modcall(cfg: ModCallConfig):
 
     results: dict[str, list] = {}
     chrs = [(name, fasta.length(name)) for name in fasta.references]
+    mine = set(dist.shard_contigs([name for name, _len in chrs]))
     ckpt = None
     if cfg.checkpoint_dir:
         from ..utils.checkpoint import LinesCheckpoint, modcall_fingerprint
@@ -634,6 +640,8 @@ def run_modcall(cfg: ModCallConfig):
         results.update(ckpt.load())
     with timer("modcall"):
         for chrom, chrom_len in chrs:
+            if chrom not in mine:
+                continue
             if chrom in results:  # checkpointed contig: reuse its lines
                 print(f"({chrom}*)", end="", file=sys.stderr)
                 continue
@@ -672,6 +680,15 @@ def run_modcall(cfg: ModCallConfig):
                 ckpt.save(chrom, out)
             print(f"({chrom})", end="", file=sys.stderr)
         print("", file=sys.stderr)
+
+    if dist.is_active():
+        with timer("allgather shard results"):
+            merged: dict[str, list] = {}
+            for blob in dist.allgather_bytes(json.dumps(results).encode()):
+                merged.update(json.loads(blob))
+            results = merged
+        if not dist.is_writer():
+            return results
 
     with timer("write vcf"):
         with open(cfg.result_prefix + ".vcf", "a") as f:

@@ -8,8 +8,11 @@ filters and the VCF writers are the port's copies of the JAX package's
 host layers.
 The multichip sink and drain (JAX lines 52-118) batch the deferred
 chromosomes on ``cfg.device`` (``parallel/multichip.py``), or run the
-site-sharded wavefront over the visible devices, with no per-chromosome
-fallback; multi-host sharding is not ported yet.
+site-sharded wavefront over the process's devices, with no
+per-chromosome fallback. Under ``--dist`` / ``LPS_DIST``
+(``parallel/distributed.py``) each process phases its contig shard on its
+own card (``dist.local_device``) and the results are all-gathered;
+process 0 writes the VCFs.
 """
 
 from __future__ import annotations
@@ -56,7 +59,7 @@ class PhaseConfig:
     engine: str = "gpu"  # "oracle" (host, exact) | "gpu" (this package's kernels)
     device: str = "cuda"  # where engine="gpu" runs: "cuda", "cuda:N" or "cpu"
     checkpoint_dir: str = ""  # per-contig resume (utils/checkpoint.py)
-    dist: str = ""  # multi-host spec; not ported, must be empty
+    dist: str = ""  # "host:port,nprocs,pid" multi-process spec
     params: PhaseParams = field(default_factory=PhaseParams)
 
 
@@ -82,38 +85,36 @@ def _make_multichip_sink(cfg):
     """A list that collects the flat path's chromosomes for one batched
     device step (JAX phase.py:52-70), else None: engine ``gpu`` only;
     ``LPS_MULTICHIP=0`` disables it, ``=1`` forces it (on ``cfg.device``,
-    the CPU included), otherwise it is on only when more than one CUDA
-    device is visible. On one card the default stays per chromosome."""
+    the CPU included), otherwise it is on only when the process owns
+    more than one CUDA device (``dist.local_device_count``: one under an
+    active group). On one card the default stays per chromosome."""
     env = os.environ.get("LPS_MULTICHIP", "")
     if cfg.engine != "gpu" or env == "0":
         return None
     if env == "1":
         return []
-    import torch
-
-    return [] if torch.cuda.device_count() > 1 else None
+    return [] if dist.local_device_count() > 1 else None
 
 
 def _use_wavefront(n_chroms: int, device) -> bool:
     """Whether the drain runs the site-sharded wavefront (JAX
     phase.py:90-95): ``LPS_WAVEFRONT=1`` forces it and ``=0`` disables it;
     otherwise it engages when fewer chromosomes are deferred than there are
-    devices (the visible CUDA devices for a CUDA ``device``, else 1), so
+    devices (the process's CUDA devices for a CUDA ``device``, else 1), so
     never on one card."""
-    import torch
-
     wf = os.environ.get("LPS_WAVEFRONT", "")
-    n_dev = torch.cuda.device_count() if device.type == "cuda" else 1
+    n_dev = dist.local_device_count() if device.type == "cuda" else 1
     return wf == "1" or (wf != "0" and n_chroms < n_dev)
 
 
 def _wavefront_devices(device) -> list:
     """The wavefront's devices: ``device`` first, where the pair stage,
     the assembly and the correction run, then the other visible CUDA
-    devices in order; a device that is not CUDA alone."""
+    devices in order; a device that is not CUDA, or a process of an active
+    group (which owns one card), alone."""
     import torch
 
-    if device.type != "cuda":
+    if device.type != "cuda" or dist.is_active():
         return [device]
     first = device.index if device.index is not None \
         else torch.cuda.current_device()
@@ -144,7 +145,8 @@ def run_phase(cfg: PhaseConfig) -> dict:
         raise ValueError(f"engine must be one of {ENGINES}, got {cfg.engine!r}")
     dist.init_from_spec(cfg.dist)
     dist.maybe_init_from_env()
-    device = resolve_device(cfg.device) if cfg.engine == "gpu" else None
+    device = resolve_device(dist.local_device(cfg.device)) \
+        if cfg.engine == "gpu" else None
     timer = StageTimer()
     cfg.params.is_ont = cfg.is_ont
     cfg.params.phase_indel = cfg.phase_indel

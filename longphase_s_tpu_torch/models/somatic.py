@@ -7,12 +7,15 @@ purity estimation -> purity-tiered feature filters -> read-HP calibration ->
 somatic flags -> optional _sc.vcf -> tag tumor BAM with HP:Z/PS:i/PQ:i.
 
 The port's copy of ``longphase_s_tpu/models/somatic.py``. The functions
-that dispatch to the device are rewritten for one process on one torch
-device, each with the JAX lines it mirrors: ``_native_bams`` (93-133),
+that dispatch to the device are rewritten for a torch device, each with
+the JAX lines it mirrors: ``_native_bams`` (93-133),
 ``_run_extraction`` (256-390), ``run_somatic_calling`` (392-435),
 ``_somatic_tag_fast`` (1018-1262), ``run_somatic_haplotag`` (1372-1684)
-and ``run_estimate_purity`` (1696-1735). Their multi-host branches are
-dropped (``--dist`` raises on the port). The device-mesh batch
+and ``run_estimate_purity`` (1696-1735). Under ``--dist`` / ``LPS_DIST``
+(``parallel/distributed.py``) each process extracts, calls and tags its
+contig shard on its own card (``dist.local_device``); the purity points,
+the somatic flags and the tag segments are all-gathered and process 0
+writes the files. The device-mesh batch
 (``_mesh_devices``, ``_mesh_precompute`` and the tag pass's batch, JAX
 151-253 and 1050-1099) batches every chromosome's reductions on the
 pipeline's one device (``tag_kernels.somatic_counts_batched``), with no
@@ -23,6 +26,7 @@ device.
 
 from __future__ import annotations
 
+import json
 import math
 import os
 import sys
@@ -91,7 +95,7 @@ class SomaticConfig:
     output_cram: bool = False
     command: str = ""
     checkpoint_dir: str = ""  # per-contig extraction resume (SURVEY §5)
-    dist: str = ""  # multi-host spec; not ported, must be empty
+    dist: str = ""  # "host:port,nprocs,pid" multi-process spec
     # estimate_purity never consumes the +-100bp offset windows (they feed
     # only the DenseAlt filter in the calling stage), so its extraction
     # skips collecting them; outputs are unaffected
@@ -120,13 +124,17 @@ def _last_var_pos(variants_sorted, variants, genome_sample):
 def _native_bams(cfg):
     """Native handles for the normal/tumor BAMs, or (None, None) entries when
     the native path is unavailable (CRAM input, no compiler, opt-out).
-    Copy of JAX somatic.py:93-133 for one process."""
+    Copy of JAX somatic.py:93-133."""
     if os.environ.get("LPS_NO_NATIVE_TAG"):
         return None, None
+    # streaming is one-process only: the sharded tag gather relies on
+    # whole-file handle record indices
+    allow = not dist.is_active()
 
     def open_one(path, allow_stream):
         # container-streaming CRAM handle first (bounded memory, no
         # whole-file BAM image)
+        allow_stream = allow_stream and allow
         if allow_stream and native.available() and is_cram(path):
             try:
                 return native.CramStreamingBam(path, cfg.fasta_file)
@@ -170,14 +178,13 @@ def _mesh_devices(device):
     """The devices the somatic chromosome batch runs on, or None when it is
     off (JAX somatic.py:151-166, the ``LPS_MULTICHIP`` gate of
     ``models/phase._make_multichip_sink``): ``LPS_MULTICHIP=0`` disables
-    it, ``=1`` forces it, otherwise it is on only when more than one CUDA
-    device is visible. The batch runs on the pipeline's one device."""
+    it, ``=1`` forces it, otherwise it is on only when the process owns
+    more than one CUDA device (``dist.local_device_count``: one under an
+    active group). The batch runs on the pipeline's one device."""
     env = os.environ.get("LPS_MULTICHIP", "")
     if env == "0":
         return None
-    import torch
-
-    if env == "1" or torch.cuda.device_count() > 1:
+    if env == "1" or dist.local_device_count() > 1:
         return [resolve_device(device)]
     return None
 
@@ -387,17 +394,23 @@ def _run_extraction(cfg, state, loop_chroms, chr_multi, chr_length, fasta,
 
 def run_somatic_calling(cfg: SomaticConfig, chr_vec, chr_length, chr_multi,
                         sv_counts, fasta: FastaFile, timer: StageTimer,
-                        device) -> SomaticCallState:
+                        device, loop_chroms=None) -> SomaticCallState:
     """SomaticVarCaller::variantCalling (SomaticVarCaller.cpp:796-905);
     copy of JAX somatic.py:392-435 with this package's extraction and
-    purity estimator."""
+    purity estimator. ``loop_chroms`` restricts extraction and calling to
+    this process's contig shard; the purity estimator then gathers the
+    feature points of every shard, in ``chr_vec`` order."""
     state = SomaticCallState()
-    _run_extraction(cfg, state, chr_vec, chr_multi, chr_length, fasta,
+    sharded = loop_chroms is not None
+    if not sharded:
+        loop_chroms = chr_vec
+    _run_extraction(cfg, state, loop_chroms, chr_multi, chr_length, fasta,
                     sv_counts, timer, device)
 
     if cfg.estimate_tumor_purity:
         est = PurityEstimator(chr_vec, state.nor_base, state.somatic_info,
-                              cfg.write_calling_log, cfg.result_prefix)
+                              cfg.write_calling_log, cfg.result_prefix,
+                              sharded=sharded)
         state.tumor_purity = est.estimate()
         est.mark_statistic_flag()
     else:
@@ -409,7 +422,7 @@ def run_somatic_calling(cfg: SomaticConfig, chr_vec, chr_length, chr_multi,
           file=sys.stderr)
 
     with timer("calling somatic variants"):
-        for chrom in chr_vec:
+        for chrom in loop_chroms:
             variants = chr_multi.get(chrom, {})
             si = state.somatic_info[chrom]
             rs = state.read_hp_sets[chrom]
@@ -958,7 +971,7 @@ def write_somatic_vcf(tumor_snv_file, out_path, chr_multi, somatic_flags,
 
 def _somatic_tag_fast(cfg, tum_nb, chr_vec, chr_length, chr_multi,
                       somatic_flags, nor_info, fasta, stats, device,
-                      tables=None):
+                      tables=None, my_chroms=None):
     """Vectorized tumor-BAM tagging (SomaticHaplotagChrProcessor +
     SomaticHaplotagStrategy, SomaticHaplotagProcess.cpp:310-536) over the
     native walk; writes HP:Z/PS:i/PQ:i with the native tag writer. Copy of
@@ -966,7 +979,10 @@ def _somatic_tag_fast(cfg, tum_nb, chr_vec, chr_length, chr_multi,
     chromosome batch on (``_mesh_devices``) every chromosome is walked
     first and the reductions run in one batch when the engine gate sends
     the total to the device (JAX :1050-1099); otherwise each chromosome is
-    walked and reduced in turn, one walk alive at a time."""
+    walked and reduced in turn, one walk alive at a time. With
+    ``my_chroms`` (a process's contig shard) only those are tagged, the
+    segments of every process are gathered (``haplotag_fast.
+    _gather_int_segments``) and process 0 alone writes."""
     hdr_reader = open_alignment(cfg.tumor_bam_file)  # header only (BAM or CRAM)
     header = hdr_reader.header_text
     if header and not header.endswith("\n"):
@@ -979,10 +995,11 @@ def _somatic_tag_fast(cfg, tum_nb, chr_vec, chr_length, chr_multi,
 
     all_rec, all_mode, all_ps, all_pq = [], [], [], []
     all_hp: list[np.ndarray] = []
+    segs: list[tuple[int, int]] = []  # (chr_vec index, records) a contig
 
     def walks():
         """Each chromosome's walk and kernel inputs, walked on demand."""
-        for chrom in chr_vec:
+        for chrom in chr_vec if my_chroms is None else my_chroms:
             if chrom not in ref_ids:
                 continue
             variants = chr_multi.get(chrom, {})
@@ -1011,7 +1028,7 @@ def _somatic_tag_fast(cfg, tum_nb, chr_vec, chr_length, chr_multi,
                     is_som[i] = True
                     derive[i] = flags[p]
             yield {"walk": walk, "t": t, "is_som": is_som, "derive": derive,
-                   "dev": None}
+                   "dev": None, "ci": chr_vec.index(chrom)}
 
     ctxs = walks()
     devs = _mesh_devices(device)
@@ -1125,6 +1142,15 @@ def _somatic_tag_fast(cfg, tum_nb, chr_vec, chr_length, chr_multi,
         all_ps.append(ps)
         all_pq.append(pq)
         all_hp.append(hp)
+        segs.append((ctx["ci"], A))
+
+    if my_chroms is not None:
+        from .haplotag_fast import _gather_int_segments
+
+        all_rec, all_mode, all_hp, all_ps, all_pq = _gather_int_segments(
+            segs, all_rec, all_mode, all_hp, all_ps, all_pq, stats)
+        if not dist.is_writer():
+            return
 
     writer = tum_nb.tag_write_cram if cfg.output_cram else tum_nb.tag_write
     out_path = cfg.result_prefix + (".cram" if cfg.output_cram else ".bam")
@@ -1272,10 +1298,10 @@ def _write_somatic_log_row(f, rec, chrom, walker, hp, pq, nor_sim, derive_sim,
 
 def run_somatic_haplotag(cfg: SomaticConfig) -> ReadStatistics:
     """somatic_haplotag (SomaticHaplotagProcess.cpp); copy of JAX
-    somatic.py:1372-1684 for one process."""
+    somatic.py:1372-1684."""
     dist.init_from_spec(cfg.dist)
     dist.maybe_init_from_env()
-    device = resolve_device(cfg.device)
+    device = resolve_device(dist.local_device(cfg.device))
     timer = StageTimer()
     stats = ReadStatistics()
 
@@ -1332,10 +1358,18 @@ def run_somatic_haplotag(cfg: SomaticConfig) -> ReadStatistics:
 
     fasta = FastaFile(cfg.fasta_file)
 
+    # under a process group: shard extraction, calling and tagging by
+    # contig; the log and benchmark paths stay unsharded (every process
+    # computes everything and only process 0 writes)
+    unsharded = cfg.write_read_log or cfg.write_calling_log \
+        or benchmark.enabled
+    shard = dist.is_active() and not unsharded
+    my_chroms = dist.shard_contigs(chr_vec) if shard else None
+
     state = run_somatic_calling(cfg, chr_vec, chr_length, chr_multi,
                                 nor_info.read_sv_hap_count, fasta, timer,
-                                device)
-    if cfg.write_calling_log:
+                                device, loop_chroms=my_chroms)
+    if cfg.write_calling_log and dist.is_writer():
         with timer("writing somatic variants calling log"):
             write_somatic_var_log(cfg, state, chr_vec, chr_multi)
             write_dense_interval_log(cfg, state, chr_vec)
@@ -1354,8 +1388,18 @@ def run_somatic_haplotag(cfg: SomaticConfig) -> ReadStatistics:
             write_messy_read_filter_log(cfg, state, chr_vec)
             write_read_hp_detail_log(cfg, state, chr_vec)
     somatic_flags = apply_somatic_flags(state, chr_vec)
+    if shard:
+        with timer("allgather somatic flags"):
+            merged: dict[str, dict[int, int]] = {}
+            for blob in dist.allgather_bytes(json.dumps(
+                    {c: {str(p): v for p, v in d.items()}
+                     for c, d in somatic_flags.items()}).encode()):
+                for c, d in json.loads(blob).items():
+                    merged.setdefault(c, {}).update(
+                        {int(p): v for p, v in d.items()})
+            somatic_flags = merged
 
-    if cfg.write_somatic_vcf:
+    if cfg.write_somatic_vcf and dist.is_writer():
         with timer("writing somatic variants to vcf file"):
             write_somatic_vcf(cfg.tumor_snv_file,
                               cfg.result_prefix + "_sc.vcf", chr_multi,
@@ -1368,13 +1412,16 @@ def run_somatic_haplotag(cfg: SomaticConfig) -> ReadStatistics:
 
     # ---- tag tumor BAM (SINGLE_THREAD + output) --------------------------
     _nor_nb, tum_nb = _native_bams(cfg)
-    if tum_nb is not None and not (cfg.write_read_log or cfg.write_calling_log
-                                   or benchmark.enabled):
+    if tum_nb is not None and not unsharded:
         with timer("tag read"):
             _somatic_tag_fast(cfg, tum_nb, chr_vec, chr_length, chr_multi,
                               somatic_flags, nor_info, fasta, stats, device,
-                              tables=state.tables)
+                              tables=state.tables, my_chroms=my_chroms)
         _print_somatic_report(stats)
+        return stats
+    if dist.is_active() and not dist.is_writer():
+        # the object path: process 0 tags every contig (with the gathered
+        # flags when calling was sharded) and writes the files
         return stats
 
     bam = open_alignment(cfg.tumor_bam_file, fasta)
@@ -1566,12 +1613,14 @@ def _print_somatic_report(stats):
 
 def run_estimate_purity(cfg: SomaticConfig) -> float:
     """estimate_purity pipeline (PurityEstimationProcess.cpp:34-71); copy of
-    JAX somatic.py:1696-1735 for one process."""
+    JAX somatic.py:1696-1735. Under a process group each process extracts
+    its contig shard and the estimator gathers the feature points and
+    filter tallies, so the statistics equal a one-process run's."""
     cfg.collect_offset_windows = False  # purity never reads offset_bases
     cfg.collect_read_sets = False       # ...nor the per-read hp record set
     dist.init_from_spec(cfg.dist)
     dist.maybe_init_from_env()
-    device = resolve_device(cfg.device)
+    device = resolve_device(dist.local_device(cfg.device))
     timer = StageTimer()
     chr_multi: dict[str, dict[int, dict[int, object]]] = {}
     nor_info = VcfInfo(sample=NORMAL)
@@ -1590,11 +1639,13 @@ def run_estimate_purity(cfg: SomaticConfig) -> float:
     fasta = FastaFile(cfg.fasta_file)
 
     state = SomaticCallState()
-    _run_extraction(cfg, state, chr_vec, chr_multi, chr_length, fasta,
-                    nor_info.read_sv_hap_count, timer, device)
+    _run_extraction(cfg, state, dist.shard_contigs(chr_vec), chr_multi,
+                    chr_length, fasta, nor_info.read_sv_hap_count, timer,
+                    device)
 
     est = PurityEstimator(chr_vec, state.nor_base, state.somatic_info,
-                          cfg.write_calling_log, cfg.result_prefix)
+                          cfg.write_calling_log, cfg.result_prefix,
+                          sharded=True)
     purity = est.estimate()
     est.mark_statistic_flag()
     print(f"Tumor purity: {purity:.6g}", file=sys.stderr)

@@ -13,8 +13,8 @@
   output, ``--all``, several chromosomes, two ``-b`` files (the object
   path), the per-chromosome streaming handle on BAM and CRAM, and a
   checkpoint kill and resume.
-- The guards: ``--dist`` and ``LPS_DIST`` raise, ``--device cuda`` without
-  a card raises, a device error raises without a host fallback, and a
+- The guards: a spec of one process through ``--dist`` or ``LPS_DIST``
+  runs like no spec, ``--device cuda`` without a card raises, a device error raises without a host fallback, and a
   fresh interpreter runs ``cli modcall`` without importing jax or the JAX
   package.
 
@@ -313,11 +313,22 @@ def test_cuda_without_a_card_raises(meth, tmp_path, monkeypatch):
 
 @pytest.mark.parametrize("how", ["flag", "env"])
 def test_dist_spec_is_refused(meth, tmp_path, monkeypatch, how):
-    extra = ["--dist", "localhost:1234,2,0"] if how == "flag" else []
+    """A spec is no longer refused (the name is the case's from before the
+    multi-process port): a spec of one process, through ``--dist`` or
+    ``LPS_DIST``, forms no group and the VCF equals the JAX package's, as
+    the run without a spec does (tests/test_torch_distributed_tag.py runs
+    groups)."""
+    from longphase_s_tpu_torch.parallel import distributed as dist
+    from longphase_s_tpu_torch.testing.processes import free_port
+
+    monkeypatch.setattr(dist, "_initialized", False)
+    spec = f"127.0.0.1:{free_port()},1,0"
+    extra = ["--dist", spec] if how == "flag" else []
     if how == "env":
-        monkeypatch.setenv("LPS_DIST", "localhost:1234,2,0")
-    with pytest.raises(NotImplementedError):
-        _port(_args(meth["fix"]), str(tmp_path / "port"), *extra)
+        monkeypatch.setenv("LPS_DIST", spec)
+    assert _port(_args(meth["fix"]), str(tmp_path / "port"), *extra) == \
+        meth["jax"]["default"]
+    assert not dist.is_active()
 
 
 def test_modcall_imports_no_jax(meth, tmp_path):

@@ -269,10 +269,20 @@ def test_failed_kernel_build_raises(tmp_path, monkeypatch):
     assert _build._lib is None
 
 
-def test_dist_spec_is_refused(small_fixture, tmp_path):
-    with pytest.raises(NotImplementedError):
-        _port_phase(small_fixture, str(tmp_path / "port"),
-                    "--dist", "localhost:1234,2,0")
+def test_dist_spec_is_refused(small_fixture, tmp_path, monkeypatch):
+    """A ``--dist`` spec is no longer refused (the name is the case's from
+    before the multi-process port): a spec of one process forms no group
+    and the VCF equals the run without a spec
+    (tests/test_torch_distributed.py runs groups)."""
+    from longphase_s_tpu_torch.parallel import distributed as dist
+    from longphase_s_tpu_torch.testing.processes import free_port
+
+    monkeypatch.setattr(dist, "_initialized", False)
+    _port_phase(small_fixture, str(tmp_path / "port"))
+    _port_phase(small_fixture, str(tmp_path / "dist"),
+                "--dist", f"127.0.0.1:{free_port()},1,0")
+    assert not dist.is_active()
+    assert _vcf_body(tmp_path / "dist.vcf") == _vcf_body(tmp_path / "port.vcf")
 
 
 @pytest.mark.parametrize("alone", [False, True])

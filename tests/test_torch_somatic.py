@@ -11,8 +11,8 @@ device engine then runs ``ops/tag_kernels`` on the CPU); the JAX package
 runs on its host engine, which its own tests hold equal to its device
 engine. Then the guards: a fresh interpreter runs all three subcommands
 without importing jax, a device error raises instead of falling back to
-the host, ``--device cuda`` without a card raises and ``--dist`` is
-refused.
+the host, ``--device cuda`` without a card raises, and a ``--dist`` spec
+of one process runs like no spec.
 """
 
 import os
@@ -230,8 +230,22 @@ def test_cuda_without_a_card_raises(germline, tmp_path, monkeypatch):
 
 
 @pytest.mark.parametrize("subcommand", ["haplotag", "estimate_purity"])
-def test_dist_spec_is_refused(germline, somatic, tmp_path, subcommand):
+def test_dist_spec_is_refused(germline, somatic, tmp_path, monkeypatch,
+                              subcommand):
+    """A ``--dist`` spec is no longer refused (the name is the case's from
+    before the multi-process port): a spec of one process forms no group
+    and the outputs equal the JAX package's, as the run without a spec
+    does (tests/test_torch_distributed_tag.py runs groups)."""
+    from longphase_s_tpu_torch.parallel import distributed as dist
+    from longphase_s_tpu_torch.testing.processes import free_port
+
+    monkeypatch.setattr(dist, "_initialized", False)
     args = germline["args"] if subcommand == "haplotag" else somatic["args"]
-    with pytest.raises(NotImplementedError):
-        _port(subcommand, args, str(tmp_path / "port"), "--dist",
-              "localhost:1234,2,0")
+    prefix = str(tmp_path / "port")
+    _port(subcommand, args, prefix, "--dist",
+          f"127.0.0.1:{free_port()},1,0")
+    assert not dist.is_active()
+    if subcommand == "haplotag":
+        assert _tags(prefix + ".bam") == germline["tags"]
+    else:
+        assert _lines(prefix + "_purity.out") == somatic["estimate"]
