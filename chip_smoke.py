@@ -132,7 +132,23 @@ printed as it ends:
    equal to per-chromosome ``vote_scan_core`` on the card and the cpu;
    phase 5's somatic walk in three chromosomes through
    ``somatic_counts_batched`` over ``[cuda:0] * 3``, equal key for key to
-   the one-device batch, one call on the card a share.
+   the one-device batch, one call on the card a share;
+12. the soak at chromosome scale (``testing/wgs_soak.py``, steps 1-5 on
+   ``cuda``, every run a fresh interpreter with a warm-up run, then the
+   timed run): ``CFG`` cut to ``SOAK_LENGTH`` (48 of the 64 Mbp of
+   ``tools/wgs_soak.py``'s chromosome) through ``cli phase``, its VCF
+   equal to the ``--device cpu`` run's, the flat path's four kernels
+   launched and ``vote_cast`` not, its wall split into BAM ingest, merge,
+   device step, the rest of the flat path, the writer and the rest, and
+   the card's busy share from ``torch.profiler``; ``cli haplotag``
+   whole-file, streaming under a 64 MiB budget and with the host engine,
+   tags equal, with the walks the engine gate sent to each side; the
+   wavefront (``LPS_MULTICHIP=1 LPS_WAVEFRONT=1``) equal to ``cli
+   phase``; on ``SOMATIC_CFG`` cut to ``SOAK_SOMATIC_LENGTH``, the normal
+   sample phased, ``somatic_haplotag --output-somatic-vcf`` and
+   ``estimate_purity`` equal across the device and host engines with a
+   purity above 0. The soak's fixtures are simulated in a worker process
+   of their own from the start of the run.
 
 The simulated fixtures of phases 4 and 6-8 and 10 are built from the
 start, one after another in one worker process, while the card runs the
@@ -158,8 +174,11 @@ JSON line of kernels holds ``vote_scan`` twice: one chromosome a launch
 carry (phase 9: launches from ``cli phase`` with ``LPS_WAVEFRONT=1``, time
 and bound of chr1's four blocks); each flat-path kernel's entry also holds
 ``dist_launches``, its launches in each process of phase 10's 2-process
+``cli phase``, and ``soak_launches``, its launches in phase 12's timed
 ``cli phase``. Before the last line, one JSON line of phase 10's processes
-(walls, launches, device calls, bytes gathered). Any failed phase raises,
+(walls, launches, device calls, bytes gathered) and one of phase 12's soak
+(every run's wall, split, busy share, peak RSS and device memory,
+launches, engine choices, and the cut). Any failed phase raises,
 a worker that fails or times out included (its stderr tail in the
 message), and the script exits non-zero without that line.
 """
@@ -224,6 +243,12 @@ FIXTURES = {
                   dict(seed=23, n_chroms=3, base_length=120000)),
     "multi_meth": ("make_multichrom_meth_fixture", dict(seed=5, n_chroms=3)),
 }
+# phase 12's cut of the soak's configurations (testing/wgs_soak.py): CFG
+# and SOMATIC_CFG at these lengths, so that the whole run keeps a third of
+# its 1200 s limit to spare (at CFG's 64 Mbp the run took 820.8 s on an
+# NVIDIA H100 80GB HBM3 at 700 W, phase 12's steps 342.4 s of it)
+SOAK_LENGTH = 48_000_000
+SOAK_SOMATIC_LENGTH = 16_000_000
 # the genome's stream keys phase 8 writes for phase 10's processes
 GENOME_KEYS = ("positions", "vtype", "m_read", "m_rank", "m_allele", "m_qok")
 
@@ -256,6 +281,18 @@ class Fixtures:
         say(f"fixture {name}: simulated in {sim_s:.3f} s in a worker, "
             f"waited {time.perf_counter() - t0:.3f} s for it")
         return fx
+
+
+def _soak_fixtures(work: str, length: int, somatic_length: int):
+    """Phase 12's fixtures, in a worker process: the soak's ``CFG`` and
+    ``SOMATIC_CFG`` cut to these lengths; their metadata and seconds."""
+    from longphase_s_tpu_torch.testing import wgs_soak
+
+    t0 = time.perf_counter()
+    fix = wgs_soak.get_fixture(work, wgs_soak.cut(wgs_soak.CFG, length))
+    sfix = wgs_soak.get_somatic_fixture(
+        work, wgs_soak.cut(wgs_soak.SOMATIC_CFG, somatic_length))
+    return fix, sfix, time.perf_counter() - t0
 
 
 def check(cond, msg: str) -> None:
@@ -633,6 +670,30 @@ def pair_work(stream, S: int, window: int):
     return pairs
 
 
+def flat_bounds(stream, n: int, S: int, window: int, pairs: int) -> dict:
+    """The bound of each flat-path kernel on this stream of ``n``
+    observations over ``S`` sites (a chromosome, or a batch's sites end to
+    end) that adds ``pairs`` pairs (``pair_work``), as (ms, "bytes" or
+    "operations"); the bucket counts from the plain version, so that no
+    launch is counted."""
+    from longphase_s_tpu_torch.ops import cuda_scan, fused
+
+    T = fused.pair_tile_rows(S, window, stream[0].device)
+    tiles, w = -(-S // T), cuda_scan.cut_window(S, window)
+    n_src = int(fused.bucket_counts_plain(stream[0], stream[1], S, T).sum())
+    return {
+        # read, rank in; counts out
+        "bucket_count": roofline(n * 8 + tiles * 4, n),
+        # read, rank and the counts in; the index out
+        "bucket_scatter": roofline(n * 8 + tiles * 4 + n_src * 4, n),
+        # the stream, gap and vtype in; S x w codes and the site words out;
+        # one add a pair and about 16 operations a cast (t, d)
+        "pair_cast": roofline(n * 10 + S * 5 + S * w + S * 4,
+                              pairs + 16 * S * w),
+        # codes and site words in; assigned, hp and bstart out
+        "vote_scan": roofline(S * w + S * 4 + S + 2 * S * 4, 0)}
+
+
 def phase3_chromosome(rng, dev) -> dict:
     import numpy as np
     import torch
@@ -729,10 +790,8 @@ def phase3_chromosome(rng, dev) -> dict:
         plain_ms = cuda_ms(lambda: fused.pair_codes_plain(
             stream, gap, vt, S, window, **kw), 1)
         pairs = pair_work(stream, S, window)
-        # the stream, gap and vtype in; S x w codes and the site words out;
-        # one add a pair and about 16 operations a cast (t, d)
-        cast_bound = roofline(n * 10 + S * 5 + S * w + S * 4,
-                              pairs + 16 * S * w)
+        bounds = flat_bounds(stream, n, S, window, pairs)
+        cast_bound = bounds["pair_cast"]
         say(f"phase 3 pair stage at S={S}, W={window}, T={T}: {times}; "
             f"{pairs} pairs; peak device memory {stage_mb} MB; plain "
             f"version on the card {plain_ms} ms; bound {cast_bound}; equal")
@@ -779,8 +838,6 @@ def phase3_chromosome(rng, dev) -> dict:
         check(cast_err == 0 and serial_err == 0, f"vote_cast / vote_scan "
               f"differ from their plain versions at chromosome scale: "
               f"{cast_err} / {serial_err}")
-        n_src = int(ref[0].sum())
-        tiles = -(-S // T)
         share = times["pair_cast"] / (times["bucket_count"]
                                       + times["bucket_scatter"]
                                       + times["pair_cast"])
@@ -798,14 +855,11 @@ def phase3_chromosome(rng, dev) -> dict:
         out = {
             "bucket_count": dict(
                 ms=times["bucket_count"], plain_ms=count_plain_ms,
-                err=errs["bucket_count"], bound=roofline(
-                    n * 8 + tiles * 4, n),  # read, rank in; counts out
+                err=errs["bucket_count"], bound=bounds["bucket_count"],
                 limited_by="not measured"),
             "bucket_scatter": dict(
                 ms=times["bucket_scatter"], plain_ms=order_plain_ms,
-                err=errs["bucket_scatter"], bound=roofline(
-                    # read, rank and the counts in; the index out
-                    n * 8 + tiles * 4 + n_src * 4, n),
+                err=errs["bucket_scatter"], bound=bounds["bucket_scatter"],
                 limited_by="not measured"),
             "pair_cast": dict(
                 ms=times["pair_cast"], plain_ms=plain_ms,
@@ -824,8 +878,7 @@ def phase3_chromosome(rng, dev) -> dict:
                 limited_by="not measured"),
             "vote_scan": dict(
                 ms=serial_ms, plain_ms=serial_plain_ms, err=serial_err,
-                # codes and site words in; assigned, hp and bstart out
-                bound=roofline(S * w + S * 4 + S + 2 * S * 4, 0),
+                bound=bounds["vote_scan"],
                 limited_by="latency of its serial chain")}
     return out, correction
 
@@ -1839,6 +1892,19 @@ def phase8_genome(rng, dev, workdir: str, fixtures) -> dict:
             "to it")
         del codes, site, scan
 
+    # the flat-path kernels' bounds on the whole batch at W = 35, what the
+    # batched step and each split of it over cards launch between them
+    batch = fused.concat_entries(entries)
+    stream = fused.stream_to_device(batch["m_read"], batch["m_rank"],
+                                    batch["m_allele"], batch["m_qok"], dev)
+    n_b = len(batch["m_read"])
+    out["flat_bounds"] = flat_bounds(stream, n_b, S_tot, W,
+                                     pair_work(stream, S_tot, W))
+    total = sum(b for b, _ in out["flat_bounds"].values())
+    say(f"phase 8 bounds of the batch's flat-path kernels at W={W} (ms, "
+        f"by): {out['flat_bounds']}, {total} ms together")
+    del batch, stream
+
     # the batch through the cli: five chromosomes, LPS_MULTICHIP=1
     fx = fixtures.get("multi")
     argv = ["phase", "--pb", "-s", fx["vcf"], "-b", fx["bam"], "-r",
@@ -2368,11 +2434,18 @@ def phase11_mesh(dev, genome, somatic_items) -> dict:
         n += int(ref[0].sum())
     check(int(total) == n > 0, f"the sharded step's total {int(total)} is "
           f"not the per-chromosome {n}")
+    # the B launches of each kernel: vote_cast reads the sums, gap and
+    # vtype and writes codes and site words; vote_scan reads those and
+    # writes assigned, hp and bstart
+    w = cuda_scan.cut_window(S, W)
+    bound = B * (roofline(2 * S * W * 4 + S * 4 + S + S * w + S * 4, 0)[0]
+                 + roofline(S * w + S * 4 + S + 2 * S * 4, 0)[0])
     out["step"] = dict(B=B, S=S, s=step_s, launches=step_launches,
-                       total=int(total))
+                       total=int(total), bound_ms=bound)
     say(f"phase 11 make_sharded_phase_step over [{dev}] * 4, B = {B}, S = "
         f"{S}: equal to per-chromosome vote_scan_core on the card and the "
-        f"cpu, total {int(total)}; {step_s} s; launches {step_launches}")
+        f"cpu, total {int(total)}; {step_s} s (its kernels' bounds "
+        f"{bound} ms together); launches {step_launches}")
 
     # the somatic batch over three devices, phase 5's walk in three
     som = {}
@@ -2404,6 +2477,64 @@ def phase11_mesh(dev, genome, somatic_items) -> dict:
     return out
 
 
+def phase12_soak(soak_fixtures, work: str) -> dict:
+    """The soak's steps 1-5 on the card (``testing/wgs_soak.py``) in
+    ``work``, where ``soak_fixtures`` (a future of ``_soak_fixtures``)
+    builds the fixtures; each step raises on a failed equality. Returns
+    the soak's rows."""
+    from longphase_s_tpu_torch.testing import wgs_soak
+
+    t0 = time.perf_counter()
+    fix, sfix, sim_s = soak_fixtures.result()
+    waited = time.perf_counter() - t0
+    rows = {"cut": {"length": SOAK_LENGTH,
+                    "somatic_length": SOAK_SOMATIC_LENGTH,
+                    "of": {"length": wgs_soak.CFG["length"],
+                           "somatic_length":
+                               wgs_soak.SOMATIC_CFG["length"]}},
+            "fixture": {"n_sites": fix["n_sites"], "n_reads": fix["n_reads"],
+                        "bam_bytes": os.path.getsize(fix["bam"])},
+            "simulate_s": sim_s, "waited_s": waited}
+    say(f"phase 12 soak fixtures: CFG at {SOAK_LENGTH} bp of "
+        f"{wgs_soak.CFG['length']} ({fix['n_sites']} sites, "
+        f"{fix['n_reads']} reads, BAM {rows['fixture']['bam_bytes']} bytes) "
+        f"and SOMATIC_CFG at {SOAK_SOMATIC_LENGTH} bp of "
+        f"{wgs_soak.SOMATIC_CFG['length']}: simulated in {sim_s:.3f} s in a "
+        f"worker, waited {waited:.3f} s for them")
+    t0 = time.perf_counter()
+    rows.update(wgs_soak.step_phase(fix, work, "cuda", references=("cpu",)))
+    ph = rows["phase"]
+    say(f"phase 12 cli phase at {SOAK_LENGTH} bp: {ph['wall_s']} s on the "
+        f"card ({ph['sites_per_s']} sites/s), --device cpu "
+        f"{rows['phase_cpu']['wall_s']} s, VCFs equal; split (s) "
+        f"{ph['split']}; busy share {ph['busy_share']} "
+        f"({ph['device_time']}); peak RSS {ph['peak_rss_gb']} GB, device "
+        f"{ph['peak_device_mb']} MB; launches {ph['launches']}")
+    phase_vcf = os.path.join(work, "phase.vcf")
+    rows.update(wgs_soak.step_haplotag(fix, phase_vcf, work, "cuda"))
+    for name in ("haplotag_whole", "haplotag_stream", "haplotag_host"):
+        r = rows[name]
+        say(f"phase 12 {name}: {r['wall_s']} s ({r['reads_per_s']} reads/s), "
+            f"peak RSS {r['peak_rss_gb']} GB, walks to the device / host "
+            f"{r['engines']['device']} / {r['engines']['host']}, stream "
+            f"windows {r['stream_windows']}; tags equal")
+    rows.update(wgs_soak.step_wavefront(fix, work, phase_vcf, "cuda"))
+    r = rows["wavefront"]
+    say(f"phase 12 wavefront: {r['wall_s']} s, VCF equal to cli phase's; "
+        f"launches {r['launches']}")
+    rows.update(wgs_soak.step_somatic(sfix, work, "cuda"))
+    say(f"phase 12 somatic at {SOAK_SOMATIC_LENGTH} bp: somatic_haplotag "
+        f"{rows['somatic_device']['wall_s']} s device engine, "
+        f"{rows['somatic_host']['wall_s']} s host engine; estimate_purity "
+        f"{rows['purity_device']['wall_s']} / "
+        f"{rows['purity_host']['wall_s']} s; _sc.vcf ({rows['somatic_pass']} "
+        f"PASS), tags and _purity.out equal, purity "
+        f"{rows['somatic_purity']}")
+    rows["steps_s"] = time.perf_counter() - t0
+    say(f"phase 12 steps: {rows['steps_s']} s")
+    return rows
+
+
 def main() -> int:
     phase0_device()
     import numpy as np
@@ -2411,11 +2542,14 @@ def main() -> int:
 
     dev = torch.device("cuda", 0)
     rng = np.random.default_rng(SEED)
+    spawn = multiprocessing.get_context("spawn")
     with tempfile.TemporaryDirectory(prefix=".chip_smoke_", dir=ROOT) as wd, \
-            ProcessPoolExecutor(
-                max_workers=1,
-                mp_context=multiprocessing.get_context("spawn")) as pool:
+            ProcessPoolExecutor(max_workers=1, mp_context=spawn) as pool, \
+            ProcessPoolExecutor(max_workers=1, mp_context=spawn) as soak_pool:
         fixtures = Fixtures(wd, pool)
+        soak_work = os.path.join(wd, "soak")
+        soak_fixtures = soak_pool.submit(_soak_fixtures, soak_work,
+                                         SOAK_LENGTH, SOAK_SOMATIC_LENGTH)
         phase1_build()
         phase2_kernels(rng, dev)
         times, correction = phase3_chromosome(rng, dev)
@@ -2428,6 +2562,7 @@ def main() -> int:
         carry = phase9_carry(dev, wd, fixtures, genome)
         procs = phase10_processes(wd, fixtures, genome)
         mesh_out = phase11_mesh(dev, genome, som_items)
+        soak = phase12_soak(soak_fixtures, soak_work)
     leaked = sorted(m for m in sys.modules
                     if m.split(".")[0] in ("jax", "longphase_s_tpu"))
     check(not leaked, f"the port imported {leaked[:5]}")
@@ -2459,6 +2594,7 @@ def main() -> int:
         if name in FLAT_PATH:
             kernels[-1]["dist_launches"] = [
                 r["launches"][name] for r in procs["phase_2"]]
+            kernels[-1]["soak_launches"] = soak["phase"]["launches"][name]
     # the segmented launch at phase 8's genome, W = 35; its launches from
     # cli phase with LPS_MULTICHIP=1, its plain version timed on the cpu
     # over chr19-22
@@ -2519,10 +2655,12 @@ def main() -> int:
     print(json.dumps({"mesh": {
         **{f"genome_over_{k}": {key: v for key, v in mesh_out[k].items()
                                 if key != "split"} for k in (2, 4)},
+        "flat_bounds_ms": sum(b for b, _ in genome["flat_bounds"].values()),
         "sharded_step": mesh_out["step"], "somatic": mesh_out["somatic"]}}))
     print(json.dumps({"processes": {
         label: [{k: r[k] for k in keep if k in r} for r in reports]
         for label, reports in procs.items()}}))
+    print(json.dumps({"soak": soak}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),
         "count": torch.cuda.device_count()}}), flush=True)

@@ -7,15 +7,18 @@ golden-output tests (SURVEY.md §4 test plan (a)).
 
 from __future__ import annotations
 
+import bisect
 import struct
+from operator import itemgetter
 
 import numpy as np
 
-from ..io.bam import BamWriter, _reg2bin
+from ..io.bam import SEQ_NT16, BamWriter, _reg2bin
 from ..io.bgzf import BgzfWriter
 from ..io.fasta import write_fasta
 
 BASES = "ACGT"
+_BASE_BYTES = np.frombuffer(BASES.encode(), np.uint8)
 
 
 def _other_base(rng, base):
@@ -23,10 +26,41 @@ def _other_base(rng, base):
     return choices[rng.integers(0, 3)]
 
 
+# byte -> the three bytes ``_other_base`` picks from for it
+_OTHER = np.array([[ord(b) for b in BASES if b != chr(c)][:3]
+                   for c in range(256)], np.uint8)
+
+
+def _substitute(rng, seq: str, error_rate: float) -> str:
+    """Substitution errors at ``error_rate``: ``_other_base`` at each of
+    ``rng.binomial`` positions drawn with replacement, in draw order, with
+    the same draws. The three-way choices come in one array draw, which
+    takes from a ``Generator`` the values one call a choice took. A
+    position drawn again is rewritten again from its new base, so the
+    positions go in rounds: first occurrences, then second ones, and so
+    on."""
+    n_err = rng.binomial(len(seq), error_rate)
+    js = rng.integers(0, len(seq), size=n_err)
+    ks = rng.integers(0, 3, size=n_err)
+    buf = np.frombuffer(seq.encode("ascii"), np.uint8).copy()
+    order = np.argsort(js, kind="stable")
+    sj = js[order]
+    first = np.ones(n_err, bool)
+    first[1:] = sj[1:] != sj[:-1]
+    idx = np.arange(n_err)
+    rank = np.empty(n_err, np.int64)
+    rank[order] = idx - np.maximum.accumulate(np.where(first, idx, 0))
+    for r in range(int(rank.max()) + 1 if n_err else 0):
+        sel = rank == r
+        at = js[sel]
+        buf[at] = _OTHER[buf[at], ks[sel]]
+    return buf.tobytes().decode("ascii")
+
+
 def simulate_chromosome(rng, length=200000, snp_rate=0.001, indel_rate=0.0):
     """Returns (ref_seq, variants) where variants is a sorted list of
     (pos0, ref_allele, alt_allele, hap_with_alt)."""
-    seq = "".join(BASES[i] for i in rng.integers(0, 4, size=length))
+    seq = _BASE_BYTES[rng.integers(0, 4, size=length)].tobytes().decode()
     variants = []
     pos = 100
     while pos < length - 100:
@@ -49,9 +83,21 @@ def simulate_chromosome(rng, length=200000, snp_rate=0.001, indel_rate=0.0):
     return seq, variants
 
 
-def _assemble_segment(ref_seq, events, start, end):
-    """Walk ``events`` over [start, end) building (cigar, seq) exactly like
-    the inline loop simulate_reads always used (pure refactor)."""
+_event_pos = itemgetter(0)
+
+
+def _assemble_segment(ref_seq, events, start, end, others=()):
+    """Walk the events over [start, end) building (cigar, seq) exactly like
+    the inline loop simulate_reads always used (pure refactor). The events
+    are those of ``events`` (sorted by position) then of ``others`` (in any
+    order), walked in the order a stable sort by position of the two lists
+    one after the other gives; only the ones in [start, end) are taken,
+    since the walk skips every other one."""
+    win = events[bisect.bisect_left(events, start, key=_event_pos):
+                 bisect.bisect_left(events, end, key=_event_pos)]
+    if others:
+        win = sorted(win + [e for e in others if start <= e[0] < end],
+                     key=_event_pos)
     seq_parts = []
     cigar = []  # list[(op, len)]
     cursor = start
@@ -64,7 +110,7 @@ def _assemble_segment(ref_seq, events, start, end):
         else:
             cigar.append((op, ln))
 
-    for pos, ref_a, alt_a in events:
+    for pos, ref_a, alt_a in win:
         if pos < cursor or pos >= end:
             continue
         if len(ref_a) > 1 and pos + len(ref_a) > end:
@@ -201,9 +247,7 @@ def simulate_reads(rng, ref_seq, variants, coverage=25, read_len=15000,
                         err_events.append((rs, ref_seq[rs:rs + 2], b))
                     else:
                         err_events.append((rs, b, b + b))
-        if extra or err_events:
-            events = sorted(list(events) + list(extra or ())
-                            + err_events, key=lambda e: e[0])
+        others = list(extra or ()) + err_events
 
         # split-read shapes: SV-crossing split (primary + SA supplementary)
         # or a chimeric tail from a distant locus
@@ -228,9 +272,10 @@ def simulate_reads(rng, ref_seq, variants, coverage=25, read_len=15000,
             if seg_end - resume < 50:
                 split_sv = None  # breakpoint too close to the contig end
         if split_sv is not None:
-            cig_a, seq_a = _assemble_segment(ref_seq, events, start, bp)
+            cig_a, seq_a = _assemble_segment(ref_seq, events, start, bp,
+                                             others)
             cig_b, seq_b = _assemble_segment(ref_seq, events, resume,
-                                             seg_end)
+                                             seg_end, others)
             # primary: left side + the right side soft-clipped
             pa = cig_a + [(4, len(seq_b))]
             pb = [(4, len(seq_a))] + cig_b
@@ -240,7 +285,8 @@ def simulate_reads(rng, ref_seq, variants, coverage=25, read_len=15000,
                             _sa_tag(chrom, start, pa), 0x800])
         elif chimera is not None:
             mid = start + (end - start) // 2
-            cig_a, seq_a = _assemble_segment(ref_seq, events, start, mid)
+            cig_a, seq_a = _assemble_segment(ref_seq, events, start, mid,
+                                             others)
             tail_len = min(end - mid, len(ref_seq) - chimera)
             seq_b = ref_seq[chimera:chimera + tail_len]
             cig_b = [(0, tail_len)]
@@ -251,7 +297,8 @@ def simulate_reads(rng, ref_seq, variants, coverage=25, read_len=15000,
             emitted.append([qname, chimera, pb, seq_a + seq_b, None,
                             _sa_tag(chrom, start, pa), 0x800])
         else:
-            cigar, seq = _assemble_segment(ref_seq, events, start, end)
+            cigar, seq = _assemble_segment(ref_seq, events, start, end,
+                                           others)
             # soft-clipped ends
             if rng.random() < softclip_prob:
                 sc = int(rng.integers(1, max_softclip))
@@ -269,11 +316,7 @@ def simulate_reads(rng, ref_seq, variants, coverage=25, read_len=15000,
             seq = rec[3]
             # sequencing errors (substitutions only, keeps CIGAR)
             if error_rate > 0:
-                seq_l = list(seq)
-                n_err = rng.binomial(len(seq_l), error_rate)
-                for j in rng.integers(0, len(seq_l), size=n_err):
-                    seq_l[j] = _other_base(rng, seq_l[j])
-                seq = "".join(seq_l)
+                seq = _substitute(rng, seq, error_rate)
             rec[3] = seq
             rec[4] = bytes([qual]) * len(seq)
         for pos, _svlen, hap, _r, _a in svs:
@@ -390,6 +433,26 @@ def write_vcf(path, chrom, chrom_len, variants, sample="SAMPLE", phased=False,
             f.write(f"{chrom}\t{pos + 1}\t.\t{ref_a}\t{alt_a}\t50\tPASS\t.\t{fmt}\t{val}\n")
 
 
+# byte -> its 4-bit BAM base code (SEQ_NT16, case-folded); 255 where the
+# byte is no base
+_NT16_CODE = np.full(256, 255, np.uint8)
+for _i, _c in enumerate(SEQ_NT16):
+    _NT16_CODE[ord(_c)] = _NT16_CODE[ord(_c.lower())] = _i
+
+
+def _pack_seq(seq: str) -> bytes:
+    """``seq`` as BAM's packed bases: two 4-bit codes a byte, high nibble
+    first, a zero nibble after an odd last base. A character that is no
+    base raises ValueError."""
+    codes = _NT16_CODE[np.frombuffer(seq.encode("ascii"), np.uint8)]
+    if (codes == 255).any():
+        bad = seq[int(np.argmax(codes == 255))]
+        raise ValueError(f"{bad!r} is not a BAM base")
+    if len(codes) % 2:
+        codes = np.append(codes, np.uint8(0))
+    return ((codes[0::2] << 4) | codes[1::2]).tobytes()
+
+
 def write_bam_with_index(path, chrom, chrom_len, reads, sample="SAMPLE"):
     """Writes a coordinate-sorted BAM, one BGZF block per record so virtual
     offsets are trivially known, plus a .bai index."""
@@ -407,7 +470,6 @@ def write_bam_with_index(path, chrom, chrom_len, reads, sample="SAMPLE"):
     bgzf._flush_block(bytes(bgzf._buf))
     bgzf._buf = bytearray()
 
-    from ..io.bam import SEQ_NT16
     records = []  # (pos, end, voffset_beg, voffset_end)
     for entry in reads:
         qname, pos, cigar, seq, quals = entry[:5]
@@ -419,10 +481,7 @@ def write_bam_with_index(path, chrom, chrom_len, reads, sample="SAMPLE"):
         fixed = struct.pack("<iiBBHHHiiii", 0, pos, len(name_b), 60, bin_,
                             len(cigar), flag, len(seq), -1, -1, 0)
         cig = b"".join(struct.pack("<I", (ln << 4) | op) for op, ln in cigar)
-        nib = [SEQ_NT16.index(c) for c in seq.upper()]
-        if len(nib) % 2:
-            nib.append(0)
-        packed = bytes((nib[i] << 4) | nib[i + 1] for i in range(0, len(nib), 2))
+        packed = _pack_seq(seq)
         body = fixed + name_b + cig + packed + bytes(quals) + tags
         voff_beg = fh.tell() << 16
         bgzf.write(struct.pack("<i", len(body)) + body)
@@ -578,18 +637,18 @@ def make_somatic_fixture(out_dir: str, seed: int = 7, chrom: str = "chr20",
     # tumor reads: per-read somatic events
     tumor_flags = {}
 
+    somatic_by_hap = [[(pos, ref_b, alt_b)
+                       for pos, ref_b, alt_b, shap in somatic if shap == hap]
+                      for hap in (0, 1)]
+
     def tumor_events(read_idx, hap):
         is_tumor = rng.random() < purity
         tumor_flags[read_idx] = is_tumor
-        ev = []
-        if is_tumor:
-            for pos, ref_b, alt_b, shap in somatic:
-                if shap == hap:
-                    ev.append((pos, ref_b, alt_b))
-        # artifact support: rare random error reads
-        for k, (pos, ref_b, alt_b) in enumerate(artifacts):
-            if rng.random() < 0.04:
-                ev.append((pos, ref_b, alt_b))
+        ev = list(somatic_by_hap[hap]) if is_tumor else []
+        # artifact support: rare random error reads (one array draw takes
+        # the values one draw an artifact took)
+        support = rng.random(len(artifacts)) < 0.04
+        ev.extend(a for a, s in zip(artifacts, support.tolist()) if s)
         return ev
 
     tumor_reads = simulate_reads(rng, ref_seq, variants, tumor_coverage,
@@ -747,8 +806,6 @@ def write_bam_multi(path, chroms, reads_by_chrom, sample="SAMPLE"):
 
     ``chroms``: list of (name, length); ``reads_by_chrom``: parallel list of
     read-entry lists (same entry shape as write_bam_with_index)."""
-    from ..io.bam import SEQ_NT16
-
     header_text = "@HD\tVN:1.6\tSO:coordinate\n"
     for name, ln in chroms:
         header_text += f"@SQ\tSN:{name}\tLN:{ln}\n"
@@ -778,11 +835,7 @@ def write_bam_multi(path, chroms, reads_by_chrom, sample="SAMPLE"):
                                 bin_, len(cigar), flag, len(seq), -1, -1, 0)
             cig = b"".join(struct.pack("<I", (ln << 4) | op)
                            for op, ln in cigar)
-            nib = [SEQ_NT16.index(c) for c in seq.upper()]
-            if len(nib) % 2:
-                nib.append(0)
-            packed = bytes((nib[i] << 4) | nib[i + 1]
-                           for i in range(0, len(nib), 2))
+            packed = _pack_seq(seq)
             body = fixed + name_b + cig + packed + bytes(quals) + tags
             voff_beg = fh.tell() << 16
             bgzf.write(struct.pack("<i", len(body)) + body)

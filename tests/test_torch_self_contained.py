@@ -77,6 +77,7 @@ def test_port_sources_cover_every_layer():
                    for p in paths), layer
     for module in ("mesh", "multichip", "sharded_scan"):
         assert f"longphase_s_tpu_torch/parallel/{module}.py" in paths
+    assert "longphase_s_tpu_torch/testing/wgs_soak.py" in paths
     assert port_pkg.REFERENCE_VERSION == jax_pkg.REFERENCE_VERSION
 
 
