@@ -135,7 +135,7 @@ printed as it ends:
    the one-device batch, one call on the card a share;
 12. the soak at chromosome scale (``testing/wgs_soak.py``, steps 1-5 on
    ``cuda``, every run a fresh interpreter with a warm-up run, then the
-   timed run): ``CFG`` cut to ``SOAK_LENGTH`` (48 of the 64 Mbp of
+   timed run): ``CFG`` cut to ``SOAK_LENGTH`` (16 of the 64 Mbp of
    ``tools/wgs_soak.py``'s chromosome) through ``cli phase``, its VCF
    equal to the ``--device cpu`` run's, the flat path's four kernels
    launched and ``vote_cast`` not, its wall split into BAM ingest, merge,
@@ -148,9 +148,20 @@ printed as it ends:
    sample phased, ``somatic_haplotag --output-somatic-vcf`` and
    ``estimate_purity`` equal across the device and host engines with a
    purity above 0. The soak's fixtures are simulated in a worker process
-   of their own from the start of the run.
+   of their own from the start of the run;
+13. the purity sweep (``testing/purity_sweep.py``, BASELINE config 5) on
+   ``cuda``: at each of ``SWEEP``'s ten purities on ``CFG`` (1 Mbp, 50x
+   tumour / 25x normal), the normal sample phased by ``cli phase``, then
+   ``estimate_purity`` and ``somatic_haplotag --output-somatic-vcf`` with
+   the device engine and with the host engine, every run a fresh
+   interpreter without a warm-up, the ten points at once: the engines'
+   outputs equal (``_sc.vcf``,
+   tags, each ``_purity.out`` or its absence, the estimate, the filter
+   purity), the device engine's reductions on the card, and each estimate
+   equal to ``PURITY_SWEEP.md``'s reference column to six decimals; one
+   line a point, then the filter tiers the ten points reached.
 
-The simulated fixtures of phases 4 and 6-8 and 10 are built from the
+The simulated fixtures of phases 4, 6-8, 10 and 13 are built from the
 start, one after another in one worker process, while the card runs the
 earlier phases.
 
@@ -174,11 +185,13 @@ JSON line of kernels holds ``vote_scan`` twice: one chromosome a launch
 carry (phase 9: launches from ``cli phase`` with ``LPS_WAVEFRONT=1``, time
 and bound of chr1's four blocks); each flat-path kernel's entry also holds
 ``dist_launches``, its launches in each process of phase 10's 2-process
-``cli phase``, and ``soak_launches``, its launches in phase 12's timed
-``cli phase``. Before the last line, one JSON line of phase 10's processes
-(walls, launches, device calls, bytes gathered) and one of phase 12's soak
-(every run's wall, split, busy share, peak RSS and device memory,
-launches, engine choices, and the cut). Any failed phase raises,
+``cli phase``, ``soak_launches``, its launches in phase 12's timed
+``cli phase``, and ``sweep_launches``, its launches in each of phase 13's
+ten ``cli phase`` runs. Before the last line, one JSON line of phase 10's
+processes (walls, launches, device calls, bytes gathered), one of phase
+12's soak (every run's wall, split, busy share, peak RSS and device
+memory, launches, engine choices, and the cut) and one of phase 13's
+sweep (a row a point). Any failed phase raises,
 a worker that fails or times out included (its stderr tail in the
 message), and the script exits non-zero without that line.
 """
@@ -245,10 +258,16 @@ FIXTURES = {
 }
 # phase 12's cut of the soak's configurations (testing/wgs_soak.py): CFG
 # and SOMATIC_CFG at these lengths, so that the whole run keeps a third of
-# its 1200 s limit to spare (at CFG's 64 Mbp the run took 820.8 s on an
-# NVIDIA H100 80GB HBM3 at 700 W, phase 12's steps 342.4 s of it)
-SOAK_LENGTH = 48_000_000
-SOAK_SOMATIC_LENGTH = 16_000_000
+# its 1200 s limit to spare with phase 13 in it (NVIDIA H100 80GB HBM3 at
+# 700 W: at CFG's 64 Mbp and 16 Mbp of SOMATIC_CFG the run without phase
+# 13 took 820.8 s, phase 12's steps 342.4 s of it; at 24 / 16 Mbp phase
+# 12's steps took 224.1 s)
+SOAK_LENGTH = 16_000_000
+SOAK_SOMATIC_LENGTH = 8_000_000
+# phase 13's points run at once: each is a chain of five cold child
+# interpreters, about 9.5 s each on the card's host, so one point at a
+# time took 477.7 s of a 1,167 s run (NVIDIA H100 80GB HBM3, 700 W)
+SWEEP_WORKERS = 10
 # the genome's stream keys phase 8 writes for phase 10's processes
 GENOME_KEYS = ("positions", "vtype", "m_read", "m_rank", "m_allele", "m_qok")
 
@@ -293,6 +312,16 @@ def _soak_fixtures(work: str, length: int, somatic_length: int):
     sfix = wgs_soak.get_somatic_fixture(
         work, wgs_soak.cut(wgs_soak.SOMATIC_CFG, somatic_length))
     return fix, sfix, time.perf_counter() - t0
+
+
+def _sweep_fixtures(work: str):
+    """Phase 13's fixtures, in a worker process: the purity sweep's ten
+    points at ``CFG``; purity -> metadata, and the seconds."""
+    from longphase_s_tpu_torch.testing import purity_sweep
+
+    t0 = time.perf_counter()
+    fixtures = purity_sweep.build_fixtures(work, purity_sweep.SWEEP)
+    return fixtures, time.perf_counter() - t0
 
 
 def check(cond, msg: str) -> None:
@@ -2535,6 +2564,46 @@ def phase12_soak(soak_fixtures, work: str) -> dict:
     return rows
 
 
+def phase13_purity_sweep(sweep_fixtures, work: str) -> list:
+    """The purity sweep on the card (``testing/purity_sweep.py``) in
+    ``work``, where ``sweep_fixtures`` (a future of ``_sweep_fixtures``)
+    builds the fixtures; each point raises on a failed equality. Returns
+    the rows."""
+    from longphase_s_tpu_torch.testing import purity_sweep
+
+    t0 = time.perf_counter()
+    fixtures, sim_s = sweep_fixtures.result()
+    say(f"phase 13 sweep fixtures: {len(fixtures)} points at "
+        f"{purity_sweep.CFG['length']} bp, simulated in {sim_s:.3f} s in a "
+        f"worker, waited {time.perf_counter() - t0:.3f} s for them")
+    t0 = time.perf_counter()
+    rows = purity_sweep.run_points(work, fixtures, "cuda", warmup=False,
+                                   workers=SWEEP_WORKERS)
+    check([r["purity"] for r in rows] == purity_sweep.SWEEP,
+          f"phase 13 ran {[r['purity'] for r in rows]}")
+    for row in rows:
+        purity = row["purity"]
+        check(row["reference_estimate"] == row["estimate_6"],
+              f"phase 13 purity {purity}: no reference estimate")
+        runs = row["runs"]
+        say(f"phase 13 purity {purity:0.1f}: estimate {row['estimate']} "
+            f"({row['estimate_6']}, PURITY_SWEEP.md "
+            f"{row['reference_estimate']}), _purity.out "
+            f"{'written' if row['purity_out'] else 'absent'}; filters set "
+            f"with {row['filter_purity']}, tier {row['tier']}, "
+            f"{row['sc_pass']} PASS; device and host engines equal; walls "
+            f"(s) phase {runs['phase']['wall_s']:.3f}, somatic_haplotag "
+            f"{runs['somatic_device']['wall_s']:.3f} / "
+            f"{runs['somatic_host']['wall_s']:.3f}, estimate_purity "
+            f"{runs['purity_device']['wall_s']:.3f} / "
+            f"{runs['purity_host']['wall_s']:.3f}; device calls "
+            f"{runs['somatic_device']['device_calls']} / "
+            f"{runs['purity_device']['device_calls']}")
+    say(f"phase 13 tiers reached: {sorted({r['tier'] for r in rows})}; "
+        f"points {time.perf_counter() - t0:.3f} s")
+    return rows
+
+
 def main() -> int:
     phase0_device()
     import numpy as np
@@ -2547,6 +2616,8 @@ def main() -> int:
             ProcessPoolExecutor(max_workers=1, mp_context=spawn) as pool, \
             ProcessPoolExecutor(max_workers=1, mp_context=spawn) as soak_pool:
         fixtures = Fixtures(wd, pool)
+        sweep_work = os.path.join(wd, "sweep")
+        sweep_fixtures = pool.submit(_sweep_fixtures, sweep_work)
         soak_work = os.path.join(wd, "soak")
         soak_fixtures = soak_pool.submit(_soak_fixtures, soak_work,
                                          SOAK_LENGTH, SOAK_SOMATIC_LENGTH)
@@ -2563,6 +2634,7 @@ def main() -> int:
         procs = phase10_processes(wd, fixtures, genome)
         mesh_out = phase11_mesh(dev, genome, som_items)
         soak = phase12_soak(soak_fixtures, soak_work)
+        sweep = phase13_purity_sweep(sweep_fixtures, sweep_work)
     leaked = sorted(m for m in sys.modules
                     if m.split(".")[0] in ("jax", "longphase_s_tpu"))
     check(not leaked, f"the port imported {leaked[:5]}")
@@ -2595,6 +2667,8 @@ def main() -> int:
             kernels[-1]["dist_launches"] = [
                 r["launches"][name] for r in procs["phase_2"]]
             kernels[-1]["soak_launches"] = soak["phase"]["launches"][name]
+            kernels[-1]["sweep_launches"] = [
+                r["runs"]["phase"]["launches"].get(name, 0) for r in sweep]
     # the segmented launch at phase 8's genome, W = 35; its launches from
     # cli phase with LPS_MULTICHIP=1, its plain version timed on the cpu
     # over chr19-22
@@ -2661,6 +2735,7 @@ def main() -> int:
         label: [{k: r[k] for k in keep if k in r} for r in reports]
         for label, reports in procs.items()}}))
     print(json.dumps({"soak": soak}))
+    print(json.dumps({"purity_sweep": sweep}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),
         "count": torch.cuda.device_count()}}), flush=True)

@@ -395,16 +395,21 @@ def child_main(spec: dict) -> dict:
 def run_child(argv, device: str, env: dict | None = None,
               warmup: bool = True, split: bool = False,
               stream_window: int | None = None,
-              timeout: float = 7200) -> dict:
-    """``cli`` ``argv`` in a fresh interpreter (``child_main``) with
-    ``env`` added to this process's environment; its report."""
+              timeout: float = 7200, module: str = MODULE) -> dict:
+    """``cli`` ``argv`` in a fresh interpreter (``module``'s ``--child``,
+    by default ``child_main``) with ``env`` added to this process's
+    environment (a value of None removes the variable); its report."""
     spec = {"argv": list(argv), "device": device, "warmup": warmup,
             "split": split, "stream_window": stream_window}
     full_env = dict(os.environ)
     full_env["PYTHONPATH"] = os.pathsep.join(
         p for p in (ROOT, full_env.get("PYTHONPATH")) if p)
-    full_env.update(env or {})
-    r = subprocess.run([sys.executable, "-m", MODULE, "--child",
+    for key, value in (env or {}).items():
+        if value is None:
+            full_env.pop(key, None)
+        else:
+            full_env[key] = value
+    r = subprocess.run([sys.executable, "-m", module, "--child",
                         json.dumps(spec)], env=full_env, cwd=ROOT,
                        capture_output=True, text=True, timeout=timeout)
     lines = [line for line in r.stdout.splitlines()

@@ -78,6 +78,7 @@ def test_port_sources_cover_every_layer():
     for module in ("mesh", "multichip", "sharded_scan"):
         assert f"longphase_s_tpu_torch/parallel/{module}.py" in paths
     assert "longphase_s_tpu_torch/testing/wgs_soak.py" in paths
+    assert "longphase_s_tpu_torch/testing/purity_sweep.py" in paths
     assert port_pkg.REFERENCE_VERSION == jax_pkg.REFERENCE_VERSION
 
 
