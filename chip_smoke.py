@@ -159,9 +159,24 @@ printed as it ends:
    tags, each ``_purity.out`` or its absence, the estimate, the filter
    purity), the device engine's reductions on the card, and each estimate
    equal to ``PURITY_SWEEP.md``'s reference column to six decimals; one
-   line a point, then the filter tiers the ten points reached.
+   line a point, then the filter tiers the ten points reached;
+14. the fuzzer (``testing/fuzz_parity.py``, the port's
+   ``tests/fuzz_parity.py``) on the card: the six modes (``pb``, ``ont``,
+   ``indels``, ``somatic``, ``svmod``, ``modcall``) at seed 1000 and at
+   seed 1001 under ``--realism`` (``FUZZ_SEEDS``), then every surface of
+   ``fuzz_parity.SURFACES`` (``--deepsomatic_output``, ``haplotag
+   --log``, ``--region`` as a contig and a range, ``--cram``,
+   ``LPS_MAX_INMEM_BAM`` streaming for ``haplotag`` and
+   ``somatic_haplotag``), in this process: ours the port on ``cuda``
+   with the device tag engine, golden its host engines (the oracle phase
+   engine, ``LPS_TAG_ENGINE=host``), every comparison of the JAX tool.
+   One line a case (its walls, launches and device calls); every device
+   ``phase`` must launch each flat-path kernel and every device tag pass
+   its reductions (``--log`` and the calling log's tag pass take the host
+   object path in both packages), the host engines nothing; all run and
+   print before a failure raises.
 
-The simulated fixtures of phases 4, 6-8, 10 and 13 are built from the
+The simulated fixtures of phases 4, 6-8, 10, 13 and 14 are built from the
 start, one after another in one worker process, while the card runs the
 earlier phases.
 
@@ -186,12 +201,14 @@ carry (phase 9: launches from ``cli phase`` with ``LPS_WAVEFRONT=1``, time
 and bound of chr1's four blocks); each flat-path kernel's entry also holds
 ``dist_launches``, its launches in each process of phase 10's 2-process
 ``cli phase``, ``soak_launches``, its launches in phase 12's timed
-``cli phase``, and ``sweep_launches``, its launches in each of phase 13's
-ten ``cli phase`` runs. Before the last line, one JSON line of phase 10's
-processes (walls, launches, device calls, bytes gathered), one of phase
-12's soak (every run's wall, split, busy share, peak RSS and device
-memory, launches, engine choices, and the cut) and one of phase 13's
-sweep (a row a point). Any failed phase raises,
+``cli phase``, ``sweep_launches``, its launches in each of phase 13's
+ten ``cli phase`` runs, and ``fuzz_launches``, its launches in phase 14.
+Before the last line, one JSON line of phase 10's processes (walls,
+launches, device calls, bytes gathered), one of phase 12's soak (every
+run's wall, split, busy share, peak RSS and device memory, launches,
+engine choices, and the cut), one of phase 13's sweep (a row a point)
+and one of phase 14's fuzzer (a row a case and surface, the phase's wall,
+launches and device calls). Any failed phase raises,
 a worker that fails or times out included (its stderr tail in the
 message), and the script exits non-zero without that line.
 """
@@ -268,6 +285,9 @@ SOAK_SOMATIC_LENGTH = 8_000_000
 # interpreters, about 9.5 s each on the card's host, so one point at a
 # time took 477.7 s of a 1,167 s run (NVIDIA H100 80GB HBM3, 700 W)
 SWEEP_WORKERS = 10
+# phase 14's fuzz cases (testing/fuzz_parity.py): each seed with its
+# profile (--realism or not), the six modes each
+FUZZ_SEEDS = ((1000, False), (1001, True))
 # the genome's stream keys phase 8 writes for phase 10's processes
 GENOME_KEYS = ("positions", "vtype", "m_read", "m_rank", "m_allele", "m_qok")
 
@@ -322,6 +342,20 @@ def _sweep_fixtures(work: str):
     t0 = time.perf_counter()
     fixtures = purity_sweep.build_fixtures(work, purity_sweep.SWEEP)
     return fixtures, time.perf_counter() - t0
+
+
+def _fuzz_fixtures(work: str):
+    """Phase 14's fixtures, in a worker process: the fuzzer's cases of
+    ``FUZZ_SEEDS`` and the surfaces' two fixtures; (mode, seed, realism)
+    -> metadata, the surfaces' metadata, and the seconds."""
+    from longphase_s_tpu_torch.testing import fuzz_parity
+
+    t0 = time.perf_counter()
+    cases = {(mode, seed, realism): fuzz_parity.case_fixture(
+                 mode, seed, os.path.join(work, f"{mode}_{seed}"), realism)
+             for seed, realism in FUZZ_SEEDS for mode in fuzz_parity.MODES}
+    surfaces = fuzz_parity.surface_fixtures(os.path.join(work, "surfaces"))
+    return cases, surfaces, time.perf_counter() - t0
 
 
 def check(cond, msg: str) -> None:
@@ -2604,6 +2638,63 @@ def phase13_purity_sweep(sweep_fixtures, work: str) -> list:
     return rows
 
 
+def phase14_fuzz(fuzz_fixtures, work: str) -> dict:
+    """The fuzzer (``testing/fuzz_parity.py``) on the card in ``work``:
+    the cases of ``FUZZ_SEEDS`` and every surface, ours the port on
+    ``cuda`` with the device tag engine, golden its host engines (the
+    oracle phase engine, ``LPS_TAG_ENGINE=host``). ``fuzz_fixtures`` (a
+    future of ``_fuzz_fixtures``) builds the fixtures. Every case and
+    surface runs and prints its line before any failure raises. Returns
+    the rows and the launches and device calls of the whole phase."""
+    from longphase_s_tpu_torch.ops import _build
+    from longphase_s_tpu_torch.ops import tag_kernels as tk
+    from longphase_s_tpu_torch.testing import fuzz_parity as fp
+
+    t0 = time.perf_counter()
+    cases, surf_fx, sim_s = fuzz_fixtures.result()
+    say(f"phase 14 fuzz fixtures: {len(cases)} cases and the surfaces' 2, "
+        f"simulated in {sim_s:.3f} s in a worker, waited "
+        f"{time.perf_counter() - t0:.3f} s for them")
+    golden, ours = fp.port_runners("cuda")
+    t0 = time.perf_counter()
+    _build.reset_launches()
+    tk.reset_device_calls()
+    rows = []
+    for (mode, seed, realism), fix in cases.items():
+        rows.append(fp.case_row(mode, seed, work, golden, ours, realism,
+                                fix))
+        r = rows[-1]
+        say(f"phase 14 {'--realism ' if realism else ''}{fp.row_line(r)}; "
+            f"ours launches {r['ours_launches']}, device calls "
+            f"{r['ours_device_calls']}")
+    surf_work = os.path.join(work, "surfaces")
+    phased = fp.phase_surface_inputs(surf_work, surf_fx, golden)
+    for name in fp.SURFACES:
+        rows.append(fp.surface_row(name, surf_work, surf_fx, phased, golden,
+                                   ours))
+        r = rows[-1]
+        say(f"phase 14 surface {fp.row_line(r)}; ours launches "
+            f"{r['ours_launches']}, device calls {r['ours_device_calls']}")
+    launches, calls = dict(_build.LAUNCHES), dict(tk.DEVICE_CALLS)
+    wall = time.perf_counter() - t0
+    failed = [f"{r['case']}: {r['msg']}" for r in rows if not r["ok"]]
+    check(not failed, f"phase 14: {len(failed)} of {len(rows)} failed: "
+          f"{failed}")
+    for name in FLAT_PATH:
+        check(launches[name] == sum(r["ours_launches"].get(name, 0)
+                                    for r in rows) > 0,
+              f"phase 14: the launches of {name} do not add up")
+    check(not any(r["golden_launches"] or r["golden_device_calls"]
+                  for r in rows), "phase 14: the host engines used the card")
+    for name in ("germline", "somatic_normal", "somatic_extract",
+                 "somatic_haplotag", "modcall_edges"):
+        check(calls[name] > 0, f"phase 14 never ran {name} on the card")
+    say(f"phase 14 fuzz: {len(rows)} cases and surfaces equal in "
+        f"{wall:.3f} s; launches {launches}, device calls {calls}")
+    return {"rows": rows, "wall_s": wall, "launches": launches,
+            "device_calls": calls}
+
+
 def main() -> int:
     phase0_device()
     import numpy as np
@@ -2618,6 +2709,8 @@ def main() -> int:
         fixtures = Fixtures(wd, pool)
         sweep_work = os.path.join(wd, "sweep")
         sweep_fixtures = pool.submit(_sweep_fixtures, sweep_work)
+        fuzz_work = os.path.join(wd, "fuzz")
+        fuzz_fixtures = pool.submit(_fuzz_fixtures, fuzz_work)
         soak_work = os.path.join(wd, "soak")
         soak_fixtures = soak_pool.submit(_soak_fixtures, soak_work,
                                          SOAK_LENGTH, SOAK_SOMATIC_LENGTH)
@@ -2635,6 +2728,7 @@ def main() -> int:
         mesh_out = phase11_mesh(dev, genome, som_items)
         soak = phase12_soak(soak_fixtures, soak_work)
         sweep = phase13_purity_sweep(sweep_fixtures, sweep_work)
+        fuzz = phase14_fuzz(fuzz_fixtures, fuzz_work)
     leaked = sorted(m for m in sys.modules
                     if m.split(".")[0] in ("jax", "longphase_s_tpu"))
     check(not leaked, f"the port imported {leaked[:5]}")
@@ -2669,6 +2763,7 @@ def main() -> int:
             kernels[-1]["soak_launches"] = soak["phase"]["launches"][name]
             kernels[-1]["sweep_launches"] = [
                 r["runs"]["phase"]["launches"].get(name, 0) for r in sweep]
+            kernels[-1]["fuzz_launches"] = fuzz["launches"][name]
     # the segmented launch at phase 8's genome, W = 35; its launches from
     # cli phase with LPS_MULTICHIP=1, its plain version timed on the cpu
     # over chr19-22
@@ -2736,6 +2831,7 @@ def main() -> int:
         for label, reports in procs.items()}}))
     print(json.dumps({"soak": soak}))
     print(json.dumps({"purity_sweep": sweep}))
+    print(json.dumps({"fuzz": fuzz}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),
         "count": torch.cuda.device_count()}}), flush=True)

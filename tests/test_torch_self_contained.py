@@ -79,6 +79,7 @@ def test_port_sources_cover_every_layer():
         assert f"longphase_s_tpu_torch/parallel/{module}.py" in paths
     assert "longphase_s_tpu_torch/testing/wgs_soak.py" in paths
     assert "longphase_s_tpu_torch/testing/purity_sweep.py" in paths
+    assert "longphase_s_tpu_torch/testing/fuzz_parity.py" in paths
     assert port_pkg.REFERENCE_VERSION == jax_pkg.REFERENCE_VERSION
 
 
