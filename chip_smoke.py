@@ -174,11 +174,32 @@ printed as it ends:
    ``phase`` must launch each flat-path kernel and every device tag pass
    its reductions (``--log`` and the calling log's tag pass take the host
    object path in both packages), the host engines nothing; all run and
-   print before a failure raises.
+   print before a failure raises;
+15. the end-of-round benchmark (``testing/bench.py``, the port's
+   ``bench.py``) and the stage split (``testing/stage_breakdown.py``, the
+   port's ``tools/stage_breakdown.py``) on ``cuda`` at ``BENCH_SCALE`` of
+   ``bench.py``'s sizes (4 Mbp at 30x, a 1.67 Mbp tumour/normal pair, 2
+   Mbp of methylation), one timed run a pipeline: ``phase``,
+   ``haplotag``, ``haplotag`` from a CRAM, ``somatic_haplotag``,
+   ``estimate_purity`` and ``modcall``, each equal to the host engines'
+   run (VCF, tags, ``_sc.vcf``, ``_purity.out``, the modcall VCF), every
+   ``phase`` launching the flat path's four kernels, the tag and modcall
+   reductions on the card as the engine gate chooses; then each
+   pipeline's stage split, the writer's share of a raw deflate
+   (``bam_writer_util``) and the kernel lines: ``kernels_compiled_ok``
+   (``run_fused_phase`` on ``bench.py``'s synthetic S = 4,089 input equal
+   on the card and the cpu), ``tag_kernel_device_ok`` (the germline
+   reductions on the card equal to the host's on its 400,000-observation
+   walk) and ``phase_kernel_util`` (the device half of the phase step
+   against its bytes over the memory rate plus the serial chain's floor:
+   the scan's dependent steps a site, counted from its loop, at the
+   latencies that ``csrc/chain_latency.cu`` times on the card with
+   ``clock64``, at the card's maximum SM clock). Every line of the bench
+   and of the split is printed as it comes.
 
-The simulated fixtures of phases 4, 6-8, 10, 13 and 14 are built from the
-start, one after another in one worker process, while the card runs the
-earlier phases.
+The simulated fixtures of phases 4, 6-8, 10, 13, 14 and 15 are built
+from the start, one after another in one worker process, while the card
+runs the earlier phases.
 
 Phase 5 also times the somatic batch (``somatic_counts_batched``) on its
 walk cut into three chromosomes, against the three per-chromosome calls,
@@ -202,13 +223,20 @@ and bound of chr1's four blocks); each flat-path kernel's entry also holds
 ``dist_launches``, its launches in each process of phase 10's 2-process
 ``cli phase``, ``soak_launches``, its launches in phase 12's timed
 ``cli phase``, ``sweep_launches``, its launches in each of phase 13's
-ten ``cli phase`` runs, and ``fuzz_launches``, its launches in phase 14.
+ten ``cli phase`` runs, ``fuzz_launches``, its launches in phase 14, and
+``bench_launches``, its launches in phase 15's pipelines and stage split.
+The bound of the three ``vote_scan`` entries is the larger of their
+bytes' time and their longest chain's floor: its sites times the cycles a
+site adds to the serial chain (phase 15's measured latencies, above) at
+the card's maximum SM clock, the least time a chain of dependent steps
+can take whatever its bytes (``"bound_by": "operations"`` where it wins).
 Before the last line, one JSON line of phase 10's processes (walls,
 launches, device calls, bytes gathered), one of phase 12's soak (every
 run's wall, split, busy share, peak RSS and device memory, launches,
 engine choices, and the cut), one of phase 13's sweep (a row a point)
-and one of phase 14's fuzzer (a row a case and surface, the phase's wall,
-launches and device calls). Any failed phase raises,
+one of phase 14's fuzzer (a row a case and surface, the phase's wall,
+launches and device calls) and one of phase 15's bench (its lines, rows,
+stage split, launches and device calls). Any failed phase raises,
 a worker that fails or times out included (its stderr tail in the
 message), and the script exits non-zero without that line.
 """
@@ -288,6 +316,9 @@ SWEEP_WORKERS = 10
 # phase 14's fuzz cases (testing/fuzz_parity.py): each seed with its
 # profile (--realism or not), the six modes each
 FUZZ_SEEDS = ((1000, False), (1001, True))
+# phase 15's cut of the bench's configurations (testing/bench.py):
+# bench.py's docstring sizes, 4 / 1.67 / 2 of its 12 / 5 / 6 Mbp
+BENCH_SCALE = 1 / 3
 # the genome's stream keys phase 8 writes for phase 10's processes
 GENOME_KEYS = ("positions", "vtype", "m_read", "m_rank", "m_allele", "m_qok")
 
@@ -356,6 +387,19 @@ def _fuzz_fixtures(work: str):
              for seed, realism in FUZZ_SEEDS for mode in fuzz_parity.MODES}
     surfaces = fuzz_parity.surface_fixtures(os.path.join(work, "surfaces"))
     return cases, surfaces, time.perf_counter() - t0
+
+
+def _bench_fixtures(work: str, scale: float):
+    """Phase 15's fixtures, in a worker process: the bench's three
+    configurations at ``scale`` and the phase fixture's CRAM; their
+    metadata and seconds."""
+    from longphase_s_tpu_torch.testing import bench
+
+    t0 = time.perf_counter()
+    b = bench.Bench(work, "cpu", scale)
+    metas = bench.get_fixtures(b)
+    bench.get_cram(b, metas["phase"])
+    return metas, time.perf_counter() - t0
 
 
 def check(cond, msg: str) -> None:
@@ -941,7 +985,7 @@ def phase3_chromosome(rng, dev) -> dict:
                 limited_by="not measured"),
             "vote_scan": dict(
                 ms=serial_ms, plain_ms=serial_plain_ms, err=serial_err,
-                bound=bounds["vote_scan"],
+                bound=bounds["vote_scan"], sites=S,
                 limited_by="latency of its serial chain")}
     return out, correction
 
@@ -1926,6 +1970,7 @@ def phase8_genome(rng, dev, workdir: str, fixtures) -> dict:
         w = cuda_scan.cut_window(S_tot, window)
         out[window] = dict(
             ms=seg_ms, plain_ms=plain_ms, plain_sites=z - a, err=err,
+            sites=int(np.diff(seg).max()),
             # the S_tot x w code bytes and site words in; assigned, hp and
             # bstart out
             bound=roofline(S_tot * w + S_tot * 4 + S_tot * 9, 0))
@@ -2136,7 +2181,7 @@ def phase9_carry(dev, workdir: str, fixtures, genome) -> dict:
     say(f"phase 9 cli phase LPS_WAVEFRONT=1 on 5 chromosomes: {cli_s} s, VCF "
         f"equal to the oracle's; launches {launches}")
     return dict(ms=sharded_ms[n_blocks], plain_ms=1000 * plain_s, err=err,
-                bound=bound, launches=launches["vote_scan_carry"])
+                bound=bound, launches=launches["vote_scan_carry"], sites=S)
 
 
 # phase 10 (a): one process of the group on its shard of phase 8's genome
@@ -2695,6 +2740,75 @@ def phase14_fuzz(fuzz_fixtures, work: str) -> dict:
             "device_calls": calls}
 
 
+def phase15_bench(bench_fixtures, work: str) -> dict:
+    """The bench (``testing/bench.py``) and the stage split
+    (``testing/stage_breakdown.py``) on the card in ``work`` at
+    ``BENCH_SCALE``, one timed run a pipeline; ``bench_fixtures`` (a
+    future of ``_bench_fixtures``) builds the fixtures. The counts are
+    set to 0 before the pipelines and read after the split, before the
+    kernel lines' own launches. Every line prints before a failure
+    raises. Returns the lines, rows, split, launches and device calls."""
+    from longphase_s_tpu_torch.ops import _build
+    from longphase_s_tpu_torch.ops import tag_kernels as tk
+    from longphase_s_tpu_torch.testing import bench, stage_breakdown
+
+    t0 = time.perf_counter()
+    metas, sim_s = bench_fixtures.result()
+    say(f"phase 15 bench fixtures at {BENCH_SCALE:.4f} of bench.py's sizes: "
+        f"phase {metas['phase']['n_reads']} reads, somatic "
+        f"{metas['somatic']['n_alignments']} alignments, modcall "
+        f"{metas['meth']['n_alignments']} alignments; simulated in "
+        f"{sim_s:.3f} s in a worker, waited {time.perf_counter() - t0:.3f} s "
+        "for them")
+    b = bench.Bench(work, "cuda", BENCH_SCALE, reps=1)
+    t0 = time.perf_counter()
+    _build.reset_launches()
+    tk.reset_device_calls()
+    rows, failures = bench.run_pipelines(b)
+    stages = stage_breakdown.breakdown(b)
+    launches, calls = dict(_build.LAUNCHES), dict(tk.DEVICE_CALLS)
+    pipelines_s = time.perf_counter() - t0
+    writer = []
+    bench.writer_metrics(writer, bench.haplotag_writer(rows))
+    info = bench.card_info(b.device)
+    lines = bench.result_lines(rows, writer, bench.device_metrics(b, info),
+                               {k: info[k] for k in ("device",
+                                                     "power_limit")})
+    for line in lines:
+        say(f"phase 15 bench {json.dumps(line)}")
+    for row in stages:
+        say(f"phase 15 stages {json.dumps(row)}")
+    wall = time.perf_counter() - t0
+    check(not failures, f"phase 15: {len(failures)} failed: {failures}")
+    by_metric = {line["metric"]: line for line in lines}
+    for metric in ("kernels_compiled_ok", "tag_kernel_device_ok"):
+        check(by_metric[metric]["value"] == 1, f"phase 15: {metric} is "
+              f"{by_metric[metric]['value']}")
+    util = by_metric["phase_kernel_util"]
+    check(util["value"] is not None and 0 < util["value"],
+          f"phase 15: phase_kernel_util is {util['value']}")
+    for name in FLAT_PATH:
+        check(launches[name] > 0, f"phase 15 never launched {name}")
+    for row in stages:
+        if row["pipeline"] == "phase":
+            check(all(row["launches"].get(k) for k in FLAT_PATH),
+                  f"phase 15: the split's phase launched {row['launches']}")
+    for row in rows + stages:
+        name = row.get("name", row.get("pipeline"))
+        check(not row["gate"]["device"] or any(row["device_calls"].values()),
+              f"phase 15 {name}: the gate chose the card {row['gate']} and "
+              f"no reduction ran there")
+    say(f"phase 15 bench: {len(rows)} pipelines equal to the host engines' "
+        f"and their stage split in {pipelines_s:.3f} s, the kernel lines "
+        f"after, {wall:.3f} s in all; launches {launches}, device calls "
+        f"{calls}")
+    return {"lines": lines, "rows": rows, "stages": stages,
+            "launches": launches, "device_calls": calls,
+            "pipelines_s": pipelines_s, "wall_s": wall,
+            "scale": BENCH_SCALE, "sm_clock_mhz": info["sm_clock_mhz"],
+            "chain_cycles": util["chain_cycles"]}
+
+
 def main() -> int:
     phase0_device()
     import numpy as np
@@ -2711,6 +2825,9 @@ def main() -> int:
         sweep_fixtures = pool.submit(_sweep_fixtures, sweep_work)
         fuzz_work = os.path.join(wd, "fuzz")
         fuzz_fixtures = pool.submit(_fuzz_fixtures, fuzz_work)
+        bench_work = os.path.join(wd, "bench")
+        bench_fixtures = pool.submit(_bench_fixtures, bench_work,
+                                     BENCH_SCALE)
         soak_work = os.path.join(wd, "soak")
         soak_fixtures = soak_pool.submit(_soak_fixtures, soak_work,
                                          SOAK_LENGTH, SOAK_SOMATIC_LENGTH)
@@ -2729,12 +2846,25 @@ def main() -> int:
         soak = phase12_soak(soak_fixtures, soak_work)
         sweep = phase13_purity_sweep(sweep_fixtures, sweep_work)
         fuzz = phase14_fuzz(fuzz_fixtures, fuzz_work)
+        bench_out = phase15_bench(bench_fixtures, bench_work)
     leaked = sorted(m for m in sys.modules
                     if m.split(".")[0] in ("jax", "longphase_s_tpu"))
     check(not leaked, f"the port imported {leaked[:5]}")
 
     pair = "longphase_s_tpu_torch/csrc/pair_cast.cu"
     scan = "longphase_s_tpu_torch/csrc/vote_scan.cu"
+
+    def scan_bound(bound: tuple, sites: int) -> tuple:
+        """A serial scan's least time: its bytes' (or int32 operations')
+        time, or its chain of ``sites`` dependent steps at the cycles a
+        site that phase 15 measured, at the card's maximum SM clock,
+        whichever is longer (the chain's is by operations)."""
+        from longphase_s_tpu_torch.testing import bench
+
+        chain_ms = bench.chain_floor_ms(
+            sites, bench_out["chain_cycles"]["cycles_per_site"],
+            bench_out["sm_clock_mhz"])
+        return (chain_ms, "operations") if chain_ms > bound[0] else bound
     # (source, the TPU-side function it replaces, the cli phase path whose
     # run gave its launches)
     sources = {"bucket_count": (pair, "longphase_s_tpu/ops/fused.py:26",
@@ -2750,7 +2880,8 @@ def main() -> int:
     kernels = []
     for name, (source, replaces, path) in sources.items():
         t = times[name]
-        bound, bound_by = t["bound"]
+        bound, bound_by = (scan_bound(t["bound"], t["sites"])
+                           if name == "vote_scan" else t["bound"])
         kernels.append({"name": name, "route": "cuda", "source": source,
                         "replaces": replaces, "path": path,
                         "launches": launches[name], "max_abs_err": t["err"],
@@ -2764,11 +2895,12 @@ def main() -> int:
             kernels[-1]["sweep_launches"] = [
                 r["runs"]["phase"]["launches"].get(name, 0) for r in sweep]
             kernels[-1]["fuzz_launches"] = fuzz["launches"][name]
+            kernels[-1]["bench_launches"] = bench_out["launches"][name]
     # the segmented launch at phase 8's genome, W = 35; its launches from
     # cli phase with LPS_MULTICHIP=1, its plain version timed on the cpu
     # over chr19-22
     g = genome[W]
-    bound, bound_by = g["bound"]
+    bound, bound_by = scan_bound(g["bound"], g["sites"])
     kernels.append({
         "name": "vote_scan", "route": "cuda", "source": scan,
         "replaces": "longphase_s_tpu/ops/pallas_scan.py:162 under "
@@ -2781,7 +2913,7 @@ def main() -> int:
                       "chromosome)", "library_ms": None})
     # the launch with a carry: chr1 in four blocks (phase 9); its launches
     # from cli phase with LPS_WAVEFRONT=1
-    bound, bound_by = carry["bound"]
+    bound, bound_by = scan_bound(carry["bound"], carry["sites"])
     kernels.append({
         "name": "vote_scan_carry", "route": "cuda", "source": scan,
         "replaces": "longphase_s_tpu/ops/pallas_scan.py:162 as "
@@ -2832,6 +2964,7 @@ def main() -> int:
     print(json.dumps({"soak": soak}))
     print(json.dumps({"purity_sweep": sweep}))
     print(json.dumps({"fuzz": fuzz}))
+    print(json.dumps({"bench": bench_out}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),
         "count": torch.cuda.device_count()}}), flush=True)

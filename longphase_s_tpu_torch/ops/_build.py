@@ -51,6 +51,8 @@ _SIGNATURES = {
     "lps_bucket_scatter": [_P, _P, _L, _I, _I, _P, _P, _P],
     "lps_pair_cast": [_P, _P, _P, _P, _L, _P, _P, _P, _P, _I, _I, _I, _I,
                       _I, _I, _F, _I, _I, _I, _I, _P, _P, _P],
+    # csrc/chain_latency.cu: the bench's clock64 probe, no pipeline's
+    "lps_chain_latency": [_P, _P, _I, _I, _I, _P],
 }
 
 _lock = threading.Lock()

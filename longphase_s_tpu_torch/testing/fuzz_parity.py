@@ -164,10 +164,14 @@ STEP_OUTPUTS = {
 
 @contextlib.contextmanager
 def environ(**values):
-    """The environment variables ``values`` set while the block runs,
-    then restored."""
+    """The environment variables ``values`` set (None: unset) while the
+    block runs, then restored."""
     old = {k: os.environ.get(k) for k in values}
-    os.environ.update(values)
+    for k, v in values.items():
+        if v is None:
+            os.environ.pop(k, None)
+        else:
+            os.environ[k] = v
     try:
         yield
     finally:
@@ -200,17 +204,14 @@ class PortRunner:
         device a gpu-engine phase must launch every flat-path kernel and
         a device-engine tag step must run each reduction of ``expect``
         (by default ``DEVICE_REDUCTIONS[step]``) there."""
-        from ..ops import _build
-        from ..ops import tag_kernels as tk
+        from .wgs_soak import Counts
 
-        launches0, calls0 = dict(_build.LAUNCHES), dict(tk.DEVICE_CALLS)
-        t0 = time.perf_counter()
-        fn()
-        wall = time.perf_counter() - t0
-        launches = {k: v - launches0[k] for k, v in _build.LAUNCHES.items()
-                    if v != launches0[k]}
-        calls = {k: v - calls0[k] for k, v in tk.DEVICE_CALLS.items()
-                 if v != calls0[k]}
+        with Counts() as counts:
+            t0 = time.perf_counter()
+            fn()
+            wall = time.perf_counter() - t0
+        row = counts.row(nonzero=True)
+        launches, calls = row["launches"], row["device_calls"]
         self.runs.append({"step": step, "engine": engine, "wall_s": wall,
                           "launches": launches, "device_calls": calls})
         if not self.cuda:

@@ -105,8 +105,9 @@ def check(cond, msg: str) -> None:
 # counts a chromosome that a cut scales with its length, so that their
 # density per Mbp stays the configuration's (a tumour/normal pair of
 # SOMATIC_CFG's 3,100 sites kept 300 bp apart from each other and from
-# every germline site has no room for them below about 5 Mbp)
-PER_LENGTH = ("n_somatic", "n_artifacts")
+# every germline site has no room for them below about 5 Mbp; the same
+# holds for the methylated CpG sites of a methylation fixture)
+PER_LENGTH = ("n_somatic", "n_artifacts", "n_asm", "n_homo_mod")
 
 
 def cut(cfg: dict, length: int | None) -> dict:
@@ -286,17 +287,12 @@ class PeakRss:
         return None if self.peak is None else self.peak / 1e9
 
 
-def _timed_run(spec, run, sync, cuda, engines, windows):
-    """The timed run of ``child_main``: the counts and the card's peak
-    memory reset first, the split and the profile taken where asked.
+def _timed_run(spec, run, sync, cuda, windows):
+    """The timed run of ``child_main``: the window count and the card's
+    peak memory reset first, the split and the profile taken where asked.
     Returns (wall, split or None, the card's busy time or None)."""
     import torch
 
-    from ..ops import _build, tag_kernels
-
-    _build.reset_launches()
-    tag_kernels.reset_device_calls()
-    engines.update(device=0, host=0)
     windows[0] = 0
     if cuda:
         torch.cuda.reset_peak_memory_stats()
@@ -335,19 +331,10 @@ def child_main(spec: dict) -> dict:
     import torch
 
     from .. import cli, native
-    from ..ops import _build, tag_kernels
 
     cuda = spec["device"].startswith("cuda")
     if spec["stream_window"]:
         native.StreamingBam.WINDOW = int(spec["stream_window"])
-    engines = {"device": 0, "host": 0}
-    gate = tag_kernels.engine
-
-    def counted_engine(n_work=None):
-        choice = gate(n_work)
-        engines[choice] += 1
-        return choice
-    tag_kernels.engine = counted_engine
     windows = [0]
     stream_windows = native.StreamingBam._windows
 
@@ -371,16 +358,16 @@ def child_main(spec: dict) -> dict:
             run()
             native.drain_bam_cache()
             sync()
-        wall, split, busy = _timed_run(spec, run, sync, cuda, engines,
-                                       windows)
+        with Counts() as counts:
+            wall, split, busy = _timed_run(spec, run, sync, cuda, windows)
     report = {
         "wall_s": wall,
         "peak_rss_gb": rss.gb,
         "peak_device_mb": (torch.cuda.max_memory_allocated() / 1e6
                            if cuda else None),
-        "launches": dict(_build.LAUNCHES),
-        "device_calls": dict(tag_kernels.DEVICE_CALLS),
-        "engines": engines, "stream_windows": windows[0],
+        "launches": counts.launches,
+        "device_calls": counts.device_calls,
+        "engines": counts.gate, "stream_windows": windows[0],
         "warm": bool(spec["warmup"]),
         "leaked": sorted(m for m in sys.modules
                          if m.split(".")[0] in ("jax", "longphase_s_tpu"))}
@@ -467,6 +454,51 @@ def tags_digest(path: str) -> str:
 def _purity(path: str) -> float:
     with open(path) as f:
         return float(f.read().strip().splitlines()[-1].rsplit(":", 1)[1])
+
+
+class Counts:
+    """Kernel launches (``ops/_build.LAUNCHES``), reductions on a card
+    (``ops/tag_kernels.DEVICE_CALLS``) and the engine gate's choices over
+    a ``with`` block, by difference: the global counts run on."""
+
+    def __init__(self):
+        self.launches, self.device_calls = {}, {}
+        self.gate = {"device": 0, "host": 0}
+
+    def __enter__(self):
+        from ..ops import _build
+        from ..ops import tag_kernels as tk
+
+        self._before = (dict(_build.LAUNCHES), dict(tk.DEVICE_CALLS))
+        self._engine = gate = tk.engine
+
+        def counted(n_work=None):
+            choice = gate(n_work)
+            self.gate[choice] += 1
+            return choice
+        tk.engine = counted
+        return self
+
+    def __exit__(self, *exc):
+        from ..ops import _build
+        from ..ops import tag_kernels as tk
+
+        tk.engine = self._engine
+        for now, before, into in ((_build.LAUNCHES, self._before[0],
+                                   self.launches),
+                                  (tk.DEVICE_CALLS, self._before[1],
+                                   self.device_calls)):
+            for k, v in now.items():
+                into[k] = into.get(k, 0) + v - before.get(k, 0)
+
+    def row(self, nonzero: bool = False) -> dict:
+        """The counts; with ``nonzero`` only the launches and calls that
+        happened."""
+        return {"launches": {k: v for k, v in self.launches.items()
+                             if v or not nonzero},
+                "device_calls": {k: v for k, v in self.device_calls.items()
+                                 if v or not nonzero},
+                "gate": dict(self.gate)}
 
 
 def _check_flat_path(row: dict, device: str, label: str) -> None:
@@ -711,7 +743,7 @@ def soak(work: str, device: str = "cuda", length: int | None = None,
             _say("wavefront", rows["wavefront"])
         return rows
     scfg = cut(SOMATIC_CFG, length)
-    rows["cut"] = {k: scfg[k] for k in ("length", *PER_LENGTH)}
+    rows["cut"] = {k: scfg[k] for k in ("length", *PER_LENGTH) if k in scfg}
     _say("cut", rows["cut"])
     sfix = get_somatic_fixture(work, scfg)
     rows.update(step_somatic(sfix, work, device, binary=binary))

@@ -23,6 +23,8 @@ from longphase_s_tpu.models.modcall import ModCallConfig, run_modcall
 from longphase_s_tpu.models.phase import PhaseConfig, run_phase
 from longphase_s_tpu.models.somatic import SomaticConfig, run_somatic_haplotag
 from longphase_s_tpu_torch.testing import fuzz_parity as fp
+# a fixture: the cram surface compares CRAM bytes with JAX's native writer's
+from tests.test_torch_self_contained import jax_native_up  # noqa: F401
 
 
 class JaxRunner:
@@ -97,7 +99,7 @@ def test_fuzz_case_matches_jax(mode, seed, realism, tmp_path):
 
 
 @pytest.fixture(scope="module")
-def surfaces(tmp_path_factory):
+def surfaces(tmp_path_factory, jax_native_up):
     """The surfaces' fixtures and the JAX package's phased VCFs of them."""
     work = str(tmp_path_factory.mktemp("surfaces"))
     fixtures = fp.surface_fixtures(work)

@@ -50,6 +50,8 @@ from longphase_s_tpu_torch.testing.fuzz_parity import (bam_tags, cram_body,
                                                        cram_tags, vcf_rows)
 from longphase_s_tpu_torch.testing.simulate import (make_fixture,
                                                     make_somatic_fixture)
+# a fixture: the CRAM bytes compared are JAX's native writer's
+from tests.test_torch_self_contained import jax_native_up  # noqa: F401
 from tests.test_torch_tag_surfaces import _oracle_phase
 
 REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
@@ -94,7 +96,7 @@ def codec(request, monkeypatch):
 
 
 @pytest.fixture(scope="module")
-def germ(tmp_path_factory):
+def germ(tmp_path_factory, jax_native_up):
     """conftest.py's small_fixture, simulated by the port and phased by
     the JAX package, with its BAM written as CRAM by the JAX package."""
     d = tmp_path_factory.mktemp("io_surfaces")
@@ -141,7 +143,7 @@ def test_haplotag_cram_in_cram_out_matches_jax(germ, tmp_path, monkeypatch,
 
 
 @pytest.fixture(scope="module")
-def som(tmp_path_factory):
+def som(tmp_path_factory, jax_native_up):
     """test_cram.py:104's pair, the tumour BAM written as CRAM by the JAX
     package, the normal phased by it."""
     d = tmp_path_factory.mktemp("somatic_cram")

@@ -8,11 +8,19 @@ copies of the JAX package's host layers give the same answers.
   itself, BAM records, the VCF parse, a CRAM written and read back, the
   native ``extract_phase`` arrays and both somatic extraction passes of
   ``core/somatic_fast``.
+
+``jax_native_ready`` brings the JAX package's native library up before
+any comparison: in a fresh tree one xdist worker can load the library
+while another's ``g++`` still writes it in place, and the JAX loader then
+gives up for that worker's life (ROADMAP, Queue C).
 """
 
 import ast
 import dataclasses
+import fcntl
 import os
+import tempfile
+import time
 
 import numpy as np
 import pytest
@@ -80,6 +88,8 @@ def test_port_sources_cover_every_layer():
     assert "longphase_s_tpu_torch/testing/wgs_soak.py" in paths
     assert "longphase_s_tpu_torch/testing/purity_sweep.py" in paths
     assert "longphase_s_tpu_torch/testing/fuzz_parity.py" in paths
+    assert "longphase_s_tpu_torch/testing/bench.py" in paths
+    assert "longphase_s_tpu_torch/testing/stage_breakdown.py" in paths
     assert port_pkg.REFERENCE_VERSION == jax_pkg.REFERENCE_VERSION
 
 
@@ -106,8 +116,53 @@ def _plain(x):
     return x
 
 
+def _read(path):
+    try:
+        with open(path) as f:
+            return f.read().strip()
+    except OSError:
+        return None
+
+
+def jax_native_ready(timeout: float = 120.0) -> None:
+    """Load the JAX package's native library in this process, or fail.
+
+    ``longphase_s_tpu/native`` has ``g++`` write ``liblps.so`` in place
+    and sets ``_tried`` before it loads, under a thread lock only, so a
+    worker that loads a library another worker is still writing gets None
+    for the rest of its life. Under a lock file shared by the workers
+    here: while the library does not load, wait until its
+    ``liblps.so.srchash`` stamp names the sources (a build has ended; at
+    most 30 s, then this worker builds it itself), clear ``_tried`` and
+    load again, for at most ``timeout`` seconds."""
+    stamp = jax_native._LIB_PATH + ".srchash"
+    want = jax_native._src_hash()
+    deadline = time.monotonic() + timeout
+    lock_path = os.path.join(tempfile.gettempdir(), "lps_jax_native.lock")
+    with open(lock_path, "w") as lock:
+        fcntl.flock(lock, fcntl.LOCK_EX)
+        while not jax_native.available():
+            if time.monotonic() > deadline:
+                pytest.fail(
+                    f"the JAX package's native library did not load in "
+                    f"{timeout:.0f} s: its build writes liblps.so in place "
+                    f"and a worker that loads it half written gives up "
+                    f"(longphase_s_tpu/native/__init__.py:25-71)")
+            stop = min(deadline, time.monotonic() + 30)
+            while _read(stamp) != want and time.monotonic() < stop:
+                time.sleep(0.2)
+            time.sleep(0.5)  # a build begun before the stamp may still write
+            jax_native._tried = False
+
+
 @pytest.fixture(scope="module")
-def fixtures(tmp_path_factory):
+def jax_native_up():
+    """``jax_native_ready`` once a module (other test files import it)."""
+    jax_native_ready()
+
+
+@pytest.fixture(scope="module")
+def fixtures(tmp_path_factory, jax_native_up):
     d = tmp_path_factory.mktemp("host_parity")
     germ = jax_simulate.make_fixture(
         str(d / "germ"), seed=31, length=90000, coverage=18, read_len=8000,
